@@ -16,13 +16,35 @@ Phases (any failure raises and exits nonzero without the final line):
    which must converge and must launch every kernel;
 5. cross-check: the same solve at n = 2^14 in float64 on the card (kernels)
    and on the host (plain versions) must agree in iteration count and
-   objective.
+   objective;
+6. MMA at full width: FusedMMA (default options, 20 outer iterations) on
+   FEMTopology(768, 384, cg_iters=25, solver="mgcg"), 294,912 design
+   variables and 592,130 dofs, in float32 and then in float64.  Each run
+   prints its iterations, final fobj, infeasibility, l1, linf, seconds per
+   outer iteration and peak memory, and one further outer iteration under
+   torch.profiler: device kernels and busy share, split by the
+   paropt.fem.solve, paropt.mma.eval and paropt.mma.inner_ip ranges.
+   Checks: finite, fobj < 0.5 of the start, infeasibility < 1e-6, no host
+   sync inside one FEM solve (torch.cuda.set_sync_debug_mode("error")),
+   and no kernel of phase 3 on the path.  The relative residual
+   ||K u - f|| / ||f|| of the final state solve must be < 1e-5 in float64;
+   in float32 it is printed beside its floor, the residual of the float64
+   solution rounded to float32 (~6e-4 at this mesh: no float32 solve can
+   reach 1e-5 here), with the float32 compliance's error against float64;
+7. the bench configuration: FusedMMA on FEMTopology(96, 48, cg_iters=25,
+   solver="mgcg"), float32, 60 outer iterations; fobj must fall in
+   bench.py's band (0.10, 0.18) with infeasibility < 1e-8;
+8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
+   cg_iters 25) for 20 outer iterations and on DMOFEMTopology(12, 6,
+   cg_iters 120) for 15, once with CUDA tensors and once on the CPU: the
+   same outer and inner iteration counts, fobj within 1e-9 relative.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Only torch and numpy are used.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -315,6 +337,182 @@ def phase_crosscheck(torch):
           f"objectives differ: cuda {fc!r}, cpu {fh!r}")
 
 
+def _mma_solver(torch, problem, iters, dtype_name):
+    from paropt_torch.mma import FusedMMA
+    return FusedMMA(problem, {"mma_max_iterations": iters,
+                              "mma_output_file": None, "dtype": dtype_name})
+
+
+def _profile_outer_step(torch, solver, state):
+    """One outer iteration under torch.profiler: device ops, busy share of
+    the window, and device ms / ops inside each paropt.* range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver._step(state)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [e for e in on_dev if e.name.startswith("paropt.")]
+    ops = [e for e in on_dev if not e.name.startswith("paropt.")]
+    busy = sum(e.time_range.elapsed_us() for e in ops) * 1e-6
+    split = {}
+    for name in ("paropt.fem.solve", "paropt.mma.eval", "paropt.mma.inner_ip"):
+        inside = [k for r in ranges if r.name == name for k in ops
+                  if r.time_range.start <= k.time_range.start
+                  < r.time_range.end]
+        host = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CPU and e.name == name)
+        split[name] = (len(inside),
+                       sum(k.time_range.elapsed_us() for k in inside) * 1e-3,
+                       host * 1e-3)
+    return window, len(ops), busy, split
+
+
+def _relres(torch, p64, E, u):
+    """||K u - f|| / ||f||, evaluated in float64 by the float64 model p64
+    (fixed dofs carry the identity)."""
+    r = p64._kmul(E.double(), u.double()) - p64.f
+    return (torch.linalg.norm(r) / torch.linalg.norm(p64.f)).item()
+
+
+def phase_mma_full(torch, dtype, nex=768, ney=384, iters=20):
+    """FusedMMA on the full-width FEM mesh; returns the final design."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.ops import kernels
+    tag = f"[mma {nex}x{ney} {str(dtype).split('.')[1]}]"
+    t0 = time.perf_counter()
+    prob = FEMTopology(nex, ney, cg_iters=25, solver="mgcg", dtype=dtype,
+                       device="cuda")
+    torch.cuda.synchronize()
+    log(f"{tag} {prob.nvars} design variables, {prob.ndof} dofs, "
+        f"{len(prob._mg_dims)} multigrid levels (coarsest "
+        f"{prob._mg_dims[-1][0]}x{prob._mg_dims[-1][1]}, "
+        f"{2 * (prob._mg_dims[-1][0] + 1) * (prob._mg_dims[-1][1] + 1)}-dof "
+        f"Cholesky); built in {time.perf_counter() - t0:.2f} s")
+    x0, _, _ = prob.get_vars_and_bounds()
+    f0 = float(prob.objective(x0))
+    # no host sync inside one state solve (CG and the V-cycle)
+    E0 = prob._simp(prob._filter(x0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prob._solve(E0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{tag} one FEM solve ran under set_sync_debug_mode('error')")
+
+    # warm-up: one outer iteration of a separate solver (library init)
+    warm = _mma_solver(torch, prob, iters, str(dtype).split(".")[1])
+    warm._step(warm._state0)
+    solver = _mma_solver(torch, prob, iters, str(dtype).split(".")[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    niter, sub = res["niter"], int(state.subiters)
+    log(f"{tag} outer iterations {niter}, inner IP iterations {sub}; "
+        f"fobj {res['fobj']:.9e} (start {f0:.9e}), infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.6e}, linf {res['linfty']:.6e}")
+    log(f"{tag} wall {wall:.3f} s = {wall / max(niter, 1):.4f} s per outer "
+        f"iteration ({solver.syncs.count} host reads); peak memory "
+        f"{peak:.3f} GiB; phase-3 kernel launches {launches}")
+    window, nops, busy, split = _profile_outer_step(torch, solver, state)
+    log(f"{tag} one outer iteration under the profiler: {window:.3f} s, "
+        f"{nops} device ops, device busy {busy:.4f} s = "
+        f"{100 * busy / window:.1f}% (idle {100 * (1 - busy / window):.1f}%)")
+    for name, (cnt, dev_ms, host_ms) in split.items():
+        log(f"{tag}   {name}: {cnt} device ops, device {dev_ms:.3f} ms, "
+            f"host {host_ms:.3f} ms")
+
+    x = res["x"]
+    E = prob._simp(prob._filter(x))
+    u = prob._solve(E)
+    p64 = prob if dtype == torch.float64 else FEMTopology(
+        nex, ney, cg_iters=25, solver="mgcg", dtype=torch.float64,
+        device="cuda")
+    relres = _relres(torch, p64, E, u)
+    check(torch.isfinite(x).all().item() and x.shape == (prob.nvars,),
+          "bad final design")
+    for key in ("fobj", "infeas", "l1", "linfty"):
+        check(math.isfinite(res[key]), f"non-finite {key}")
+    check(res["fobj"] < 0.5 * f0, f"fobj {res['fobj']:.4e} >= 0.5 of the "
+          f"start {f0:.4e}")
+    check(res["infeas"] < 1e-6, f"infeas {res['infeas']:.3e} >= 1e-6")
+    check(not any(launches.values()),
+          f"a phase-3 kernel ran on the MMA/FEM path: {launches}")
+    if dtype == torch.float64:
+        log(f"{tag} final state solve: relative residual {relres:.3e}")
+        check(relres < 1e-5, f"CG relative residual {relres:.3e} >= 1e-5")
+    else:
+        u64 = p64._solve(E.double())
+        floor = _relres(torch, p64, E, u64.float())
+        c32 = float(prob.f @ u)
+        c64 = float(p64.f @ u64)
+        log(f"{tag} final state solve: relative residual {relres:.3e}; "
+            f"float32 floor (float64 solution rounded) {floor:.3e}; "
+            f"float64 solve {_relres(torch, p64, E, u64):.3e}; float32 "
+            f"compliance {c32:.6e} vs float64 {c64:.6e} "
+            f"(rel err {abs(c32 - c64) / abs(c64):.3e})")
+    return x
+
+
+def phase_mma_bench(torch):
+    """bench.py's MMA configuration as a correctness check."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    prob = FEMTopology(96, 48, cg_iters=25, solver="mgcg",
+                       dtype=torch.float32, device="cuda")
+    solver = _mma_solver(torch, prob, 60, "float32")
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[mma 96x48 float32] outer iterations {res['niter']}, inner "
+        f"{int(state.subiters)}, fobj {res['fobj']:.6f}, infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.4e}; {wall:.2f} s = "
+        f"{wall / max(res['niter'], 1):.4f} s per outer iteration")
+    check(0.10 < res["fobj"] < 0.18,
+          f"fobj {res['fobj']:.4f} outside bench.py's band (0.10, 0.18)")
+    check(res["infeas"] < 1e-8, f"infeas {res['infeas']:.3e} >= 1e-8")
+
+
+def phase_mma_crosscheck(torch):
+    """FEM and DMO in float64, card against host."""
+    from paropt_torch.models.fem_topology import DMOFEMTopology, FEMTopology
+    cases = (
+        ("fem 24x12 mgcg", 20, lambda dev: FEMTopology(
+            24, 12, cg_iters=25, solver="mgcg", dtype=torch.float64,
+            device=dev)),
+        ("dmo 12x6", 15, lambda dev: DMOFEMTopology(
+            12, 6, cg_iters=120, dtype=torch.float64, device=dev)),
+    )
+    for name, iters, make in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res, state = _mma_solver(torch, make(dev), iters,
+                                     "float64").solve()
+            out[dev] = (res["niter"], int(state.subiters), res["fobj"])
+            log(f"[mma crosscheck] {name} {dev}: outer {out[dev][0]}, inner "
+                f"{out[dev][1]}, fobj {out[dev][2]:.15e} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        (kc, sc, fc), (kh, sh, fh) = out["cuda"], out["cpu"]
+        check(kc == kh and sc == sh,
+              f"{name}: iteration counts differ: cuda {kc}/{sc}, "
+              f"cpu {kh}/{sh}")
+        check(abs(fc - fh) <= 1e-9 * abs(fh),
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -325,6 +523,10 @@ def main():
     timing = phase_kernels(torch)
     launches = phase_slice(torch)
     phase_crosscheck(torch)
+    for dtype in (torch.float32, torch.float64):
+        phase_mma_full(torch, dtype)
+    phase_mma_bench(torch)
+    phase_mma_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]

@@ -4,11 +4,16 @@ The port mirrors paropt_tpu's module names so each piece has an obvious
 counterpart:
 
 - ``dtypes``, ``ops.veclib``: dtype resolution and vector reductions;
-- ``problem``, ``models.topology``: the Problem protocol (autodiff through
-  ``torch.func``) and the synthetic topology workload;
+- ``problem``, ``models``: the Problem protocol (autodiff through
+  ``torch.func``), the synthetic topology workload and the 2-D SIMP
+  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology);
 - ``ops.qn``, ``ops.kkt``: the compact quasi-Newton state and the KKT
   factor/solve;
-- ``ip_fused``: the fused interior-point major iteration and its host loop;
+- ``ip_fused``: the fused interior-point major iteration, its host loop and
+  the facade's whole solve;
+- ``mma``: the fused MMA outer loop (FusedMMA, fused_mma_solve);
+- ``optimizer``: the ``Optimizer`` facade (its ``use_fused_loop`` routes for
+  'ip' and 'mma'); ``utils.options``: the typed option registry;
 - ``ops.kernels``: hand-written CUDA kernels for Hopper (``csrc/*.cu``)
   that replace the three Pallas kernels of ``paropt_tpu/ops/
   pallas_kernels.py``, each beside its plain PyTorch version;
@@ -21,9 +26,13 @@ global default dtype; every constructor takes an explicit device and dtype.
 from .dtypes import default_float, resolve_dtype
 from .problem import Problem, SparseJacobian
 from .ops.qn import QNState, qn_init
-from .ip_fused import FusedIP
+from .ip_fused import FusedIP, fused_ip_optimize
+from .mma import FusedMMA, fused_mma_solve
+from .optimizer import Optimizer
+from .utils.options import make_options
 
 __all__ = ["Problem", "SparseJacobian", "QNState", "qn_init", "FusedIP",
-           "default_float", "resolve_dtype"]
+           "fused_ip_optimize", "FusedMMA", "fused_mma_solve", "Optimizer",
+           "make_options", "default_float", "resolve_dtype"]
 
 __version__ = "0.1.0"

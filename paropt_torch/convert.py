@@ -4,7 +4,8 @@ Each function takes a dict holding one entry per dataclass field: numpy
 arrays for the tensor fields (e.g. ``np.asarray`` of a JAX leaf), plain
 Python values for the static fields, and nested dicts for nested states
 (``FusedState.vars``, ``FusedState.qn``).  This lets one step of each package
-start from the same mid-trajectory state.  No jax is imported here: a JAX
+(an IP step, or an MMA outer iteration) start from the same mid-trajectory
+state.  No jax is imported here: a JAX
 bfloat16 array arrives as numpy's ``bfloat16`` extension dtype and is
 reinterpreted bit for bit.
 """
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from .ip_fused import FusedState
+from .mma import FusedMMAState
 from .ops.kkt import IPVars, ProblemData
 from .ops.qn import QNState
 
-__all__ = ["to_tensor", "problem_data", "ip_vars", "qn_state", "fused_state"]
+__all__ = ["to_tensor", "problem_data", "ip_vars", "qn_state", "fused_state",
+           "fused_mma_state"]
 
 _NESTED = {(FusedState, "vars"): IPVars, (FusedState, "qn"): QNState}
 
@@ -69,3 +72,8 @@ def qn_state(fields: dict, device="cpu") -> QNState:
 
 def fused_state(fields: dict, device="cpu") -> FusedState:
     return _from_fields(FusedState, fields, device)
+
+
+def fused_mma_state(fields: dict, device="cpu") -> FusedMMAState:
+    """The port's MMA outer-loop state from JAX's `FusedMMAState`."""
+    return _from_fields(FusedMMAState, fields, device)

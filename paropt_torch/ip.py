@@ -1,14 +1,25 @@
-"""Merit-function pieces shared by the interior-point solvers (counterpart of
-the helpers at paropt_tpu/ip.py:176-193).  The host-loop `InteriorPoint`
-is not ported yet."""
+"""Merit-function pieces shared by the interior-point solvers and the
+``qn_storage_dtype`` mapping (counterparts of the helpers at
+paropt_tpu/ip.py:50-56 and :176-193).  The host-loop `InteriorPoint` is not
+ported yet."""
 
 from __future__ import annotations
 
 import torch
 
+from .ops import qn as qnmod
 from .ops.kkt import ProblemData
 
-__all__ = ["_barrier_terms", "_infeas_l2"]
+__all__ = ["_barrier_terms", "_infeas_l2", "_resolve_qn_storage"]
+
+
+def _resolve_qn_storage(opt_value: str, compute_dtype):
+    """Map the `qn_storage_dtype` option to a qn_init storage dtype."""
+    if opt_value == "bfloat16":
+        return torch.bfloat16
+    if opt_value == "auto":
+        return qnmod.default_storage_dtype(compute_dtype)
+    return None
 
 
 def _barrier_terms(x, s, t, sw, tw, d: ProblemData, rel_bound_barrier):

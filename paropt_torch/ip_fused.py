@@ -12,9 +12,10 @@ the solve loop's convergence check.
 
 Ported: all four barrier strategies, the least-squares and affine-step
 starts, compact-QN / diagonal / fixed Hessians, the merit line search with
-the ρ update, the in-loop QN update, the non-finite fail-stop and the
-freeze once converged.  Not yet ported: the fused Newton-Krylov phase
-(``use_hvec_product``), ``solve_batched`` and the chunked solve.
+the ρ update, the in-loop QN update, the non-finite fail-stop, the
+freeze once converged and the facade's whole solve (`fused_ip_optimize`).
+Not yet ported: the fused Newton-Krylov phase (``use_hvec_product``),
+``solve_batched`` and the chunked solve.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from .ops.veclib import dot, matmul, multi_norm
 from .tree import tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
-           "HostSyncs", "model_from_problem", "data_template_from_problem"]
+           "HostSyncs", "model_from_problem", "data_template_from_problem",
+           "fused_ip_optimize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,15 +173,15 @@ class FusedIP:
               max_iters: Optional[int] = None, on_chunk=None,
               chunk=None) -> FusedState:
         """Run to convergence: a host loop over steps that reads
-        ``converged`` after each one."""
-        if on_chunk is not None or chunk is not None:
+        ``converged`` after each one.  ``on_chunk(state)`` is called after
+        every step (build it with `utils.chunked.make_write_output_hook`);
+        the chunked execution (``chunk``) is not ported."""
+        if chunk is not None:
             raise NotImplementedError("the chunked solve is not ported yet")
         state = self.init(x0, data, model_params, qn_state, compact)
-        for _ in range(max_iters or self.opts.max_major_iters):
-            state = self.step(state, data, model_params, compact)
-            if self.syncs(state.converged):
-                break
-        return state
+        return _fused_solve_loop(self.model, self.opts, state, data,
+                                 model_params, compact, self.syncs,
+                                 max_iters=max_iters, on_step=on_chunk)
 
     def solve_batched(self, *args, **kwargs):
         raise NotImplementedError("solve_batched is not ported yet")
@@ -625,6 +627,24 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                 new_state, old)
 
 
+def _fused_solve_loop(model: ModelFns, opts: FusedIPOptions,
+                      state: FusedState, d: ProblemData, model_params,
+                      compact, host: Callable[[torch.Tensor], bool],
+                      max_iters: Optional[int] = None,
+                      on_step=None) -> FusedState:
+    """Step until ``converged`` (read on the host after each step) or
+    ``max_iters`` (default ``opts.max_major_iters``): the counterpart of
+    JAX's ``lax.while_loop`` solve."""
+    for _ in range(max_iters or opts.max_major_iters):
+        state = _fused_step(model, opts, state, d, model_params, compact,
+                            host=host)
+        if on_step is not None:
+            on_step(state)
+        if host(state.converged):
+            break
+    return state
+
+
 # ---------------------------------------------------------------------------
 # convenience: wrap a Problem for the fused solver
 # ---------------------------------------------------------------------------
@@ -685,3 +705,60 @@ def data_template_from_problem(problem, penalty_gamma: float = 1000.0,
         Aw_cols=cols, Aw_vals=vals, nwblock=problem.nwblock,
         Aw_layout=layout)
     return d, x0
+
+
+def fused_ip_optimize(problem, options=None):
+    """Facade-style whole solve on the fused IP
+    (`Optimizer(..., {"algorithm": "ip", "use_fused_loop": True})`).
+
+    Maps the registry options onto `FusedIPOptions` (the mapping the TR/MMA
+    inner solvers use, `tr._fused_ip_options`), builds the model, data and
+    QN state on the problem's device, runs the solve, and returns (result
+    dict shaped like `InteriorPoint.optimize`, final `FusedState`)."""
+    from .ip import _resolve_qn_storage
+    from .tr import _fused_ip_options
+    from .utils.chunked import make_write_output_hook, user_write_output
+    from .utils.options import make_options
+
+    o = options if hasattr(options, "descriptors") else \
+        make_options(options or {}, which="facade")
+    dt = torch.float64 if o["dtype"] == "float64" else torch.float32
+    fopts = _fused_ip_options(
+        o, o["barrier_strategy"], o["starting_point_strategy"],
+        o["sequential_linear_method"])._replace(
+        use_quasi_newton_update=not o["sequential_linear_method"])
+
+    model = model_from_problem(problem)
+    data, x0 = data_template_from_problem(
+        problem, penalty_gamma=o["penalty_gamma"],
+        max_bound_value=o["max_bound_value"], dtype=dt)
+    qn0 = None
+    msub = qnmod.resolve_subspace_size(
+        o["qn_subspace_size"], o["qn_subspace_auto"], problem.nvars, dt)
+    if o["qn_type"] != "none" and not o["sequential_linear_method"] \
+            and msub > 0:
+        qn0 = qnmod.qn_init(
+            msub, problem.nvars, dtype=dt, qn_type=o["qn_type"],
+            storage_dtype=_resolve_qn_storage(o["qn_storage_dtype"], dt),
+            update_type=o["qn_update_type"], diag_type=o["qn_diag_type"],
+            device=x0.device)
+    fused = FusedIP(model, problem.nvars, problem.ncon, problem.nwcon,
+                    problem.nwblock, fopts, dtype=dt)
+    # the writeOutput cadence of `ParOptInteriorPoint.cpp:4620-4631`;
+    # checkpoints are not ported yet
+    hook = make_write_output_hook(user_write_output(problem),
+                                  o["write_output_frequency"],
+                                  get_x=lambda st: st.vars.x,
+                                  checkpoint_path=o["ip_checkpoint_file"])
+    state = fused.solve(x0, data, (), qn0, None, on_chunk=hook)
+    converged = bool(state.converged)
+    result = {
+        "x": state.vars.x, "fobj": float(state.fobj),
+        "converged": converged,
+        "reason": "tolerance" if converged else "max iterations",
+        "niter": int(state.k), "neval": int(state.neval),
+        # one gradient evaluation per accepted major iteration + init
+        "ngeval": int(state.k) + 1,
+        "res_norm": float(state.res_norm), "mu": float(state.mu),
+    }
+    return result, state

@@ -1,0 +1,450 @@
+"""Method of Moving Asymptotes, the fused outer loop (counterpart of
+paropt_tpu/mma.py:41-101 and :473-899, where the method is documented).
+
+Each outer iteration evaluates the problem, updates the asymptotes
+(contract/relax rule), the move limits, the inner bounds α/β and the p/q
+coefficients of the separable convex approximation, tests the KKT error, and
+solves the approximation with the fused interior-point solver (diagonal
+Hessian, no line search).  The JAX package runs the whole loop as one
+``lax.while_loop``; here it is a host loop over outer iterations, and the
+inner solve is skipped after one host read of ``converged`` once the loop
+has converged (JAX's ``lax.cond``).  ``FusedMMA.syncs`` counts the host
+reads, the inner solver's included.
+
+Not ported yet: the host-loop `MMA` class and ``solve_batched``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import weakref
+from collections import OrderedDict
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .ip_fused import (FusedIPOptions, HostSyncs, ModelFns, _fused_init,
+                       _fused_solve_loop)
+from .ops.kkt import ProblemData
+from .utils.options import make_options
+
+__all__ = ["MMAParams", "make_mma_model", "FusedMMA", "fused_mma_solve",
+           "FusedMMAOptions", "FusedMMAState"]
+
+
+class MMAParams(NamedTuple):
+    """Data of the separable MMA subproblem model."""
+    L: Any
+    U: Any
+    p0: Any
+    q0: Any
+    pi: Any
+    qi: Any
+    b: Any
+    cons: Any
+    A: Any
+    x0: Any
+    cwk: Any
+    Aw_cols: Any
+    Aw_vals: Any
+
+
+def make_mma_model(use_true_mma: bool, has_sparse: bool) -> ModelFns:
+    """Fused-IP model functions for the MMA subproblem
+    (`ParOptMMA::evalObjCon/evalObjConGradient/evalHessianDiag`,
+    `ParOptMMA.cpp:804-1010`)."""
+
+    def ev(p: MMAParams, x):
+        Uinv = 1.0 / (p.U - x)
+        Linv = 1.0 / (x - p.L)
+        f = torch.sum(p.p0 * Uinv + p.q0 * Linv)
+        if p.cons.shape[0] == 0:
+            c = p.cons
+        elif use_true_mma:
+            c = -(p.pi @ Uinv + p.qi @ Linv + p.b)
+        else:
+            c = p.cons + p.A @ (x - p.x0)
+        if has_sparse:
+            gathered = (x - p.x0)[..., p.Aw_cols]
+            cw = p.cwk + torch.sum(p.Aw_vals * gathered, dim=-1)
+        else:
+            cw = p.cwk
+        return f, c, cw
+
+    def gr(p: MMAParams, x):
+        Uinv = 1.0 / (p.U - x)
+        Linv = 1.0 / (x - p.L)
+        g = p.p0 * Uinv ** 2 - p.q0 * Linv ** 2
+        if p.cons.shape[0] > 0 and use_true_mma:
+            A = p.qi * (Linv ** 2)[None, :] - p.pi * (Uinv ** 2)[None, :]
+        else:
+            A = p.A
+        return g, A
+
+    def hd(p: MMAParams, x, z, zw):
+        Uinv = 1.0 / (p.U - x)
+        Linv = 1.0 / (x - p.L)
+        h = 2.0 * (p.p0 * Uinv ** 3 + p.q0 * Linv ** 3)
+        if use_true_mma and p.cons.shape[0] > 0:
+            h = h + 2.0 * (z @ (p.pi * (Uinv ** 3)[None, :]
+                                + p.qi * (Linv ** 3)[None, :]))
+        return h
+
+    return ModelFns(eval_obj_con=ev, eval_grad=gr, hess_diag=hd)
+
+
+class FusedMMAOptions(NamedTuple):
+    """Outer-loop options (mirror the mma_* registry entries)."""
+    max_iterations: int = 200
+    infeas_tol: float = 1e-5
+    l1_tol: float = 1e-6
+    linf_tol: float = 1e-6
+    move_limit: float = 0.2
+    init_asymptote_offset: float = 0.25
+    asymptote_contract: float = 0.7
+    asymptote_relax: float = 1.2
+    min_asymptote_offset: float = 0.01
+    max_asymptote_offset: float = 10.0
+    eps_regularization: float = 1e-5
+    delta_regularization: float = 1e-3
+    bound_relax: float = 0.0
+    use_true_mma: bool = True
+    ninequality: int = 0
+    nwinequality: int = 0
+    # 'none' (reference absolute test) | 'gradient' (relative to ||g||)
+    kkt_error_scaling: str = "none"
+    # no-improvement window (mma_max_no_improvement; 0 = disabled)
+    max_no_improvement: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedMMAState:
+    """Outer-loop state."""
+    x: torch.Tensor
+    x1: torch.Tensor
+    x2: torch.Tensor
+    L: torch.Tensor
+    U: torch.Tensor
+    z: torch.Tensor
+    zw: torch.Tensor
+    zl: torch.Tensor
+    zu: torch.Tensor
+    fobj: torch.Tensor
+    k: torch.Tensor            # outer iteration counter (int32)
+    subiters: torch.Tensor     # cumulative inner IP iterations (int32)
+    converged: torch.Tensor    # bool
+    infeas: torch.Tensor
+    l1: torch.Tensor
+    linf: torch.Tensor
+    best_l1: torch.Tensor      # best stationarity seen (stall detection)
+    no_improve: torch.Tensor   # int32 consecutive non-improving iterations
+    stalled: torch.Tensor      # bool: converged via the no-improvement exit
+
+
+def _asymptote_factor(indc, mo: FusedMMAOptions):
+    """Contract where the last two moves changed sign (indc < 0), relax
+    elsewhere.  A tensor operand: with two Python scalars torch.where
+    would return float32 whatever indc's dtype."""
+    contract = torch.full_like(indc, mo.asymptote_contract)
+    return torch.where(indc < 0.0, contract, mo.asymptote_relax)
+
+
+def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
+                    ip_opts: FusedIPOptions, mo: FusedMMAOptions,
+                    lbv, ubv, d_tmpl: ProblemData, params_user,
+                    state: FusedMMAState, host=bool) -> FusedMMAState:
+    """One outer MMA iteration: evaluate, update asymptotes/coeffs, test
+    convergence, inner-solve (skipped once converged).  ``host`` reads a
+    device flag on the host."""
+    x, x1, x2 = state.x, state.x1, state.x2
+    dt = x.dtype
+    dev = x.device
+    with record_function("paropt.mma.eval"):
+        fobj, cons, cw = user_model.eval_obj_con(params_user, x)
+        g, A = user_model.eval_grad(params_user, x)
+    cons = cons.reshape(-1)
+
+    # -- asymptotes (`ParOptMMA.cpp:615-664`) -------------------------------
+    lower = torch.maximum(lbv, x - mo.move_limit)
+    upper = torch.minimum(ubv, x + mo.move_limit)
+    off = mo.init_asymptote_offset
+    L_init = x - off * (upper - lower)
+    U_init = x + off * (upper - lower)
+    indc = (x - x1) * (x1 - x2)
+    intrvl = torch.clamp(upper - lower, 0.01, 100.0)
+    fac = _asymptote_factor(indc, mo)
+    L_upd = torch.minimum(x - fac * (x1 - state.L),
+                          x - mo.min_asymptote_offset * intrvl)
+    U_upd = torch.maximum(x + fac * (state.U - x1),
+                          x + mo.min_asymptote_offset * intrvl)
+    L_upd = torch.maximum(L_upd, x - mo.max_asymptote_offset * intrvl)
+    U_upd = torch.minimum(U_upd, x + mo.max_asymptote_offset * intrvl)
+    first = state.k < 2
+    L = torch.where(first, L_init, L_upd)
+    U = torch.where(first, U_init, U_upd)
+
+    # -- inner bounds + p/q coefficients (`ParOptMMA.cpp:689-734`) ----------
+    alpha = torch.maximum(torch.maximum(lower, 0.9 * L + 0.1 * x),
+                          x - 0.5 * (upper - lower))
+    beta = torch.minimum(torch.minimum(upper, 0.9 * U + 0.1 * x),
+                         x + 0.5 * (upper - lower))
+    eps, delta = mo.eps_regularization, mo.delta_regularization
+    gpos = torch.clamp(g, min=0.0)
+    gneg = torch.clamp(-g, min=0.0)
+    Umx = U - x
+    xmL = x - L
+    p0 = Umx ** 2 * ((1.0 + delta) * gpos + delta * gneg + eps / (U - L))
+    q0 = xmL ** 2 * ((1.0 + delta) * gneg + delta * gpos + eps / (U - L))
+    ncon = cons.shape[0]
+    if mo.use_true_mma and ncon > 0:
+        Apos = torch.clamp(-A, min=0.0)
+        Aneg = torch.clamp(A, min=0.0)
+        pi = Umx[None, :] ** 2 * Apos
+        qi = xmL[None, :] ** 2 * Aneg
+        b = -(cons + torch.sum(pi / Umx[None, :] + qi / xmL[None, :], dim=1))
+    else:
+        pi = torch.zeros((ncon, x.shape[0]), dtype=dt, device=dev)
+        qi = torch.zeros((ncon, x.shape[0]), dtype=dt, device=dev)
+        b = torch.zeros(ncon, dtype=dt, device=dev)
+
+    # -- KKT error at x with the incoming multipliers (`computeKKTError`,
+    #    `ParOptMMA.cpp:406-488`) -------------------------------------------
+    r = g - A.T @ state.z if ncon else g
+    if d_tmpl.nwcon > 0:
+        r = r - d_tmpl.Aw_rmatvec(state.zw)
+    if mo.bound_relax > 0.0:
+        r = torch.where((x <= lbv + mo.bound_relax) & (r > 0.0), 0.0, r)
+        r = torch.where((x >= ubv - mo.bound_relax) & (r < 0.0), 0.0, r)
+    else:
+        r = r - state.zl + state.zu
+    zero = torch.zeros((), dtype=dt, device=dev)
+    l1 = torch.sum(torch.abs(r))
+    linf = torch.max(torch.abs(r)) if r.numel() else zero
+    infeas = zero
+    if ncon:
+        idx = torch.arange(ncon, device=dev)
+        infeas = torch.sum(torch.where(idx < mo.ninequality,
+                                       torch.clamp(-cons, min=0.0),
+                                       torch.abs(cons)))
+    if d_tmpl.nwcon:
+        idxw = torch.arange(d_tmpl.nwcon, device=dev)
+        infeas = infeas + torch.sum(
+            torch.where(idxw < mo.nwinequality, torch.clamp(-cw, min=0.0),
+                        torch.abs(cw)))
+    if mo.kkt_error_scaling == "gradient":
+        # relative stationarity: scale the tolerances by the objective
+        # gradient norms
+        s1 = torch.clamp(torch.sum(torch.abs(g)), min=1.0)
+        sinf = torch.clamp(torch.max(torch.abs(g)), min=1.0)
+    else:
+        s1 = sinf = zero + 1.0
+    tol_met = (l1 < mo.l1_tol * s1) | (linf < mo.linf_tol * sinf)
+    # no-improvement window (mma_max_no_improvement): terminate at the
+    # arithmetic-noise stationarity floor; frozen once converged
+    active = (state.k > 0) & ~state.converged
+    improved = l1 < state.best_l1
+    best_new = torch.where(active & improved, l1, state.best_l1)
+    no_imp_new = torch.where(
+        active, torch.where(improved, torch.zeros_like(state.no_improve),
+                            state.no_improve + 1),
+        state.no_improve)
+    stall_exit = torch.zeros((), dtype=torch.bool, device=dev)
+    if mo.max_no_improvement > 0:
+        stall_exit = no_imp_new >= mo.max_no_improvement
+    converged = ((state.k > 0) & (infeas < mo.infeas_tol)
+                 & (tol_met | stall_exit))
+    stalled = state.stalled | (converged & ~state.converged & stall_exit
+                               & ~tol_met)
+
+    # -- inner fused IP solve (skipped once converged) -----------------------
+    if host(converged):
+        xn, zn, zwn, zln, zun = x, state.z, state.zw, state.zl, state.zu
+        kin = torch.zeros_like(state.k)
+    else:
+        params = MMAParams(L=L, U=U, p0=p0, q0=q0, pi=pi, qi=qi, b=b,
+                           cons=cons, A=A, x0=x, cwk=cw,
+                           Aw_cols=d_tmpl.Aw_cols, Aw_vals=d_tmpl.Aw_vals)
+        d = dataclasses.replace(d_tmpl, lb=alpha, ub=beta)
+        with record_function("paropt.mma.inner_ip"):
+            st0 = _fused_init(mma_model, ip_opts, x, d, params, None, None)
+            st = _fused_solve_loop(mma_model, ip_opts, st0, d, params, None,
+                                   host)
+        v = st.vars
+        xn, zn, zwn, zln, zun, kin = v.x, v.z, v.zw, v.zl, v.zu, st.k
+
+    return FusedMMAState(
+        x=xn, x1=torch.where(converged, x1, x),
+        x2=torch.where(converged, x2, x1),
+        L=L, U=U, z=zn, zw=zwn, zl=zln, zu=zun, fobj=fobj.to(dt),
+        k=state.k + (~converged).to(state.k.dtype),
+        subiters=state.subiters + kin, converged=converged,
+        infeas=infeas, l1=l1, linf=linf,
+        best_l1=best_new, no_improve=no_imp_new, stalled=stalled)
+
+
+class FusedMMA:
+    """Fused MMA solver for a problem written in torch, on the problem's
+    device.  The problem's sparse Jacobian (if any) must be CONSTANT in x:
+    its values are captured once at x0.  Options use the standard
+    mma_*/IP registry names; ``dtype`` selects the solver's precision."""
+
+    def __init__(self, problem, options: Optional[Dict[str, Any]] = None):
+        o = options if hasattr(options, "descriptors") else \
+            make_options(options or {}, which="facade")
+        dt = torch.float64 if o["dtype"] == "float64" else torch.float32
+        x0, lb, ub = problem.get_vars_and_bounds()
+        dev = x0.device
+        kw = dict(dtype=dt, device=dev)
+        x0, lbv, ubv = x0.to(dt), lb.to(dt), ub.to(dt)
+        n, ncon, nwcon = problem.nvars, problem.ncon, problem.nwcon
+
+        def ev(params, x):
+            f, c = problem.eval_obj_con(x)
+            cwv = (problem.eval_sparse_con(x) if nwcon > 0
+                   else x.new_zeros(0))
+            return f, c.reshape(ncon), cwv
+
+        def gr(params, x):
+            return problem.eval_obj_con_gradient(x)
+
+        user_model = ModelFns(eval_obj_con=ev, eval_grad=gr)
+
+        use_true = not o["mma_use_constraint_linearization"]
+        mma_model = make_mma_model(use_true, nwcon > 0)
+        gamma = o["penalty_gamma"]
+        if nwcon > 0:
+            Aw = problem.sparse_jacobian(x0)
+            cols, vals, layout = Aw.cols, Aw.vals.to(dt), Aw.layout
+        else:
+            cols = vals = None
+            layout = "gather"
+        ones = torch.ones(n, **kw)
+        d_tmpl = ProblemData(
+            g=torch.zeros(n, **kw), A=torch.zeros((ncon, n), **kw),
+            c=torch.zeros(ncon, **kw), cw=torch.zeros(nwcon, **kw),
+            lb=lbv, ub=ubv, lb_mask=ones, ub_mask=ones,
+            gamma_s=torch.as_tensor(
+                np.where(np.arange(ncon) < problem.ninequality, 0.0, gamma),
+                **kw),
+            gamma_t=torch.full((ncon,), gamma, **kw),
+            gamma_sw=torch.as_tensor(
+                np.where(np.arange(nwcon) < problem.nwinequality, 0.0,
+                         gamma), **kw),
+            gamma_tw=torch.full((nwcon,), gamma, **kw),
+            Aw_cols=cols, Aw_vals=vals, nwblock=problem.nwblock,
+            Aw_layout=layout)
+        ip_opts = FusedIPOptions(
+            abs_res_tol=o["abs_res_tol"],
+            init_barrier_param=o["init_barrier_param"],
+            barrier_strategy=o["barrier_strategy"],
+            starting_point_strategy=o["starting_point_strategy"],
+            max_major_iters=o["max_major_iters"],
+            iterative_refinement_steps=o["iterative_refinement_steps"],
+            use_line_search=False, use_diag_hessian=True,
+            norm_type=o["norm_type"])
+        mo = FusedMMAOptions(
+            max_iterations=o["mma_max_iterations"],
+            infeas_tol=o["mma_infeas_tol"], l1_tol=o["mma_l1_tol"],
+            linf_tol=o["mma_linfty_tol"], move_limit=o["mma_move_limit"],
+            init_asymptote_offset=o["mma_init_asymptote_offset"],
+            asymptote_contract=o["mma_asymptote_contract"],
+            asymptote_relax=o["mma_asymptote_relax"],
+            min_asymptote_offset=o["mma_min_asymptote_offset"],
+            max_asymptote_offset=o["mma_max_asymptote_offset"],
+            eps_regularization=o["mma_eps_regularization"],
+            delta_regularization=o["mma_delta_regularization"],
+            bound_relax=o["mma_bound_relax"], use_true_mma=use_true,
+            ninequality=problem.ninequality,
+            nwinequality=problem.nwinequality,
+            kkt_error_scaling=o["mma_kkt_error_scaling"],
+            max_no_improvement=o["mma_max_no_improvement"])
+
+        zero = torch.zeros((), **kw)
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        self._state0 = FusedMMAState(
+            x=x0, x1=x0, x2=x0, L=torch.zeros(n, **kw),
+            U=torch.zeros(n, **kw), z=torch.zeros(ncon, **kw),
+            zw=torch.zeros(nwcon, **kw), zl=torch.zeros(n, **kw),
+            zu=torch.zeros(n, **kw), fobj=zero, k=zero_i, subiters=zero_i,
+            converged=false, infeas=zero, l1=zero, linf=zero,
+            best_l1=zero + float("inf"), no_improve=zero_i, stalled=false)
+        self.syncs = HostSyncs()
+        self._mo = mo
+        self._ev = ev
+        self._problem = problem
+        self._write_freq = o["write_output_frequency"]
+        self._step = functools.partial(
+            _fused_mma_step, user_model, mma_model, ip_opts, mo, lbv, ubv,
+            d_tmpl, (), host=self.syncs)
+
+    def solve(self, state0: Optional[FusedMMAState] = None,
+              checkpoint_path=None):
+        """Run the outer loop: a host loop over outer iterations that reads
+        ``converged`` after each.  Returns (result dict, final state).  Pass
+        a previous final state to resume.  The problem's
+        ``write_output(it, x)`` hook fires every ``write_output_frequency``
+        outer iterations; checkpoints are not ported yet."""
+        from .utils.chunked import make_write_output_hook, user_write_output
+        hook = make_write_output_hook(
+            user_write_output(self._problem), self._write_freq,
+            get_x=lambda st: st.x, checkpoint_path=checkpoint_path)
+        state = state0 if state0 is not None else self._state0
+        for _ in range(self._mo.max_iterations):
+            state = self._step(state)
+            if hook is not None:
+                hook(state)
+            if self.syncs(state.converged):
+                break
+        # state.fobj is the value at the point the LAST step evaluated;
+        # when the loop exits at the iteration cap, x has advanced once
+        fobj_final, _, _ = self._ev((), state.x)
+        result = {"x": state.x, "fobj": float(fobj_final),
+                  "converged": bool(state.converged),
+                  "stalled": bool(state.stalled), "niter": int(state.k),
+                  "infeas": float(state.infeas), "l1": float(state.l1),
+                  "linfty": float(state.linf)}
+        return result, state
+
+    def solve_batched(self, x0_batch, chunk="auto"):
+        raise NotImplementedError(
+            "FusedMMA.solve_batched is not ported yet (it waits for "
+            "FusedIP.solve_batched)")
+
+
+# bounded strong-reference LRU: a weak-value cache would evict the solver
+# the moment fused_mma_solve returns (nothing else holds it)
+_FUSED_MMA_CACHE: "OrderedDict" = OrderedDict()
+_FUSED_MMA_CACHE_MAX = 8
+
+
+def fused_mma_solve(problem, options: Optional[Dict[str, Any]] = None):
+    """One-shot convenience wrapper over `FusedMMA` (build + solve).
+
+    The built solver is cached per (problem, options), so back-to-back
+    calls reuse it.  The cache holds strong references to the last few
+    solvers (LRU, size 8); problem identity is re-checked through a weakref
+    so a recycled id() cannot alias a dead problem."""
+    if hasattr(options, "descriptors"):
+        key = None  # registry objects are mutable; don't cache
+    else:
+        try:
+            key = (id(problem), tuple(sorted((options or {}).items())))
+            hash(key)
+        except TypeError:  # unhashable option values
+            key = None
+    solver = _FUSED_MMA_CACHE.get(key) if key is not None else None
+    if solver is None or solver._problem_ref() is not problem:
+        solver = FusedMMA(problem, options)
+        solver._problem_ref = weakref.ref(problem)
+        if key is not None:
+            _FUSED_MMA_CACHE[key] = solver
+            _FUSED_MMA_CACHE.move_to_end(key)
+            while len(_FUSED_MMA_CACHE) > _FUSED_MMA_CACHE_MAX:
+                _FUSED_MMA_CACHE.popitem(last=False)
+    elif key is not None:
+        _FUSED_MMA_CACHE.move_to_end(key)
+    return solver.solve()

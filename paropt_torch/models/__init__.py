@@ -1,5 +1,6 @@
 """Problem models ported from paropt_tpu.models."""
 
+from .fem_topology import DMOFEMTopology, FEMTopology
 from .topology import SyntheticTopology
 
-__all__ = ["SyntheticTopology"]
+__all__ = ["SyntheticTopology", "FEMTopology", "DMOFEMTopology"]

@@ -45,6 +45,17 @@ def assert_close(got, want, rtol, atol=0.0, name=""):
                                err_msg=name)
 
 
+def assert_rel(got, want, rtol, name=""):
+    """max |got - want| <= rtol * max |want|: a tolerance relative to the
+    reference's largest entry, for outputs whose entries cancel to ~0 and
+    carry the roundoff of the terms that cancelled."""
+    got, want = np_of(got), np_of(want)
+    assert got.shape == want.shape, name
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    scale = float(np.max(np.abs(want))) if want.size else 0.0
+    assert err <= rtol * scale, f"{name}: {err:.3e} > {rtol:.0e} * {scale:.3e}"
+
+
 def assert_fields_close(got, want, rtol, atol=0.0, names=None):
     """Field-for-field comparison of a port dataclass with a JAX one."""
     for f in dataclasses.fields(want):

@@ -269,15 +269,18 @@ def test_unported_paths_raise_and_tf32_is_off():
         tf.solve_batched(None, None)
     td, x0 = tip.data_template_from_problem(tp, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
-        tf.solve(x0, td, (), on_chunk=print)
+        tf.solve(x0, td, (), chunk=4)
 
 
 def test_import_loads_no_jax():
     """paropt_torch runs where jax is not installed: importing it (and its
-    solver and kernel modules) loads no jax module."""
+    solver, facade, model, option and kernel modules) loads no jax module."""
     code = ("import sys, paropt_torch, paropt_torch.ip_fused, "
             "paropt_torch.convert, paropt_torch.ops.kernels, "
-            "paropt_torch.models.topology; "
+            "paropt_torch.models.topology, paropt_torch.mma, "
+            "paropt_torch.optimizer, paropt_torch.tr, "
+            "paropt_torch.models.fem_topology, paropt_torch.utils.options, "
+            "paropt_torch.utils.chunked; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'paropt_tpu')));"
             "print(bad); sys.exit(1 if bad else 0)")
