@@ -37,10 +37,29 @@ Phases (any failure raises and exits nonzero without the final line):
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
    cg_iters 25) for 20 outer iterations and on DMOFEMTopology(12, 6,
    cg_iters 120) for 15, once with CUDA tensors and once on the CPU: the
-   same outer and inner iteration counts, fobj within 1e-9 relative.
+   same outer and inner iteration counts, fobj within 1e-9 relative;
+9. TR at full width: FusedTR (bench.py's TR options: 20 outer iterations,
+   abs_res_tol 1e-6, tr_infeas_tol 1e-5, tr_l1_tol 0, tr_linfty_tol 1e-5;
+   L-BFGS msub 10) on SyntheticTopology(n = 2^20) in float32.  It must
+   converge with infeasibility and linf below 1e-5, a finite x and fobj
+   below its start, and must launch every kernel; it prints the outer and
+   inner iterations, seconds and host reads per outer iteration, peak
+   memory, and one further outer iteration under torch.profiler split by
+   the paropt.tr.steer, paropt.tr.qp, paropt.tr.eval and
+   paropt.tr.qn_update ranges;
+10. bench.py's TR configuration: FusedTR on FEMTopology(48, 24,
+   cg_iters=25, solver="mgcg"), float32, 20 outer iterations; fobj must
+   fall in bench.py's band (0.18, 0.30) with infeasibility < 1e-6, and of
+   the kernels only the outer QN update's may launch (nwcon = 0);
+11. card against host in float64: FusedTR on SyntheticTopology(n = 2^14)
+   and on FEMTopology(12, 6, mgcg, cg_iters 25), 10 outer iterations each,
+   once with CUDA tensors and once on the CPU: the same outer and inner
+   iteration counts, fobj within 1e-9 relative.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Only torch and numpy are used.
+The line before the last is a JSON object with one entry per kernel (its
+launches in the phase-4 IP solve and, as tr_launches, in the phase-9 TR
+solve); the last line is {"ok": true, "device": {...}}.  Only torch and
+numpy are used.
 """
 
 import json
@@ -343,9 +362,15 @@ def _mma_solver(torch, problem, iters, dtype_name):
                               "mma_output_file": None, "dtype": dtype_name})
 
 
-def _profile_outer_step(torch, solver, state):
+MMA_RANGES = ("paropt.fem.solve", "paropt.mma.eval", "paropt.mma.inner_ip")
+TR_RANGES = ("paropt.tr.steer", "paropt.tr.qp", "paropt.tr.eval",
+             "paropt.tr.qn_update")
+
+
+def _profile_outer_step(torch, solver, state, names=MMA_RANGES):
     """One outer iteration under torch.profiler: device ops, busy share of
-    the window, and device ms / ops inside each paropt.* range."""
+    the window, and device ms / ops / host ms inside each range of
+    ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -360,7 +385,7 @@ def _profile_outer_step(torch, solver, state):
     ops = [e for e in on_dev if not e.name.startswith("paropt.")]
     busy = sum(e.time_range.elapsed_us() for e in ops) * 1e-6
     split = {}
-    for name in ("paropt.fem.solve", "paropt.mma.eval", "paropt.mma.inner_ip"):
+    for name in names:
         inside = [k for r in ranges if r.name == name for k in ops
                   if r.time_range.start <= k.time_range.start
                   < r.time_range.end]
@@ -513,6 +538,127 @@ def phase_mma_crosscheck(torch):
               f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
 
 
+TR_OPTS = {"tr_output_file": None, "output_file": None,
+           "tr_max_iterations": 20, "abs_res_tol": 1e-6,
+           "tr_infeas_tol": 1e-5, "tr_l1_tol": 0.0, "tr_linfty_tol": 1e-5}
+
+
+def _tr_solver(problem, dtype_name, **extra):
+    from paropt_torch.tr import FusedTR
+    return FusedTR(problem, dict(TR_OPTS, dtype=dtype_name, **extra))
+
+
+def phase_tr_full(torch):
+    """FusedTR on SyntheticTopology at n = 2^20 in float32; returns the
+    kernel launch counts of the solve."""
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.ops import kernels
+    tag = f"[tr n={N_MAIN} float32]"
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    x0, _, _ = prob.get_vars_and_bounds()
+    f0 = float(prob.objective(x0))
+    warm = _tr_solver(prob, "float32")
+    warm._step(warm._state0)
+    solver = _tr_solver(prob, "float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    niter, sub = res["niter"], res["subiters"]
+    log(f"{tag} converged={res['converged']} outer iterations {niter}, "
+        f"inner IP iterations {sub}; fobj {res['fobj']:.9e} (start "
+        f"{f0:.9e}), infeas {res['infeas']:.3e}, l1 {res['l1']:.6e}, "
+        f"linf {res['linfty']:.6e}, tr_size {res['tr_size']:.4e}")
+    log(f"{tag} wall {wall:.4f} s = {wall / max(niter, 1):.4f} s per outer "
+        f"iteration, {wall / max(sub, 1) * 1e3:.2f} ms per inner step; "
+        f"{solver.syncs.count} host reads = "
+        f"{solver.syncs.count / max(niter, 1):.1f} per outer iteration; "
+        f"peak memory {peak:.3f} GiB; kernel launches {launches}")
+    window, nops, busy, split = _profile_outer_step(torch, solver, state,
+                                                    TR_RANGES)
+    log(f"{tag} one outer iteration under the profiler: {window:.3f} s, "
+        f"{nops} device ops, device busy {busy:.4f} s = "
+        f"{100 * busy / window:.1f}% (idle {100 * (1 - busy / window):.1f}%)")
+    for name, (cnt, dev_ms, host_ms) in split.items():
+        log(f"{tag}   {name}: {cnt} device ops, device {dev_ms:.3f} ms, "
+            f"host {host_ms:.3f} ms")
+    x = res["x"]
+    check(x.shape == (N_MAIN,) and torch.isfinite(x).all().item(),
+          "bad final x")
+    check(res["converged"], f"TR did not converge in {niter} outer "
+          f"iterations (infeas {res['infeas']:.3e}, linf "
+          f"{res['linfty']:.3e})")
+    check(res["infeas"] < 1e-5 and res["linfty"] < 1e-5,
+          f"infeas {res['infeas']:.3e} or linf {res['linfty']:.3e} >= 1e-5")
+    check(math.isfinite(res["fobj"]) and res["fobj"] < f0,
+          f"fobj {res['fobj']:.6e} not below the start {f0:.6e}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the TR solve")
+    return launches
+
+
+def phase_tr_bench(torch):
+    """bench.py's TR configuration as a correctness check."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.ops import kernels
+    prob = FEMTopology(48, 24, cg_iters=25, solver="mgcg",
+                       dtype=torch.float32, device="cuda")
+    solver = _tr_solver(prob, "float32")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"[tr 48x24 float32] outer iterations {res['niter']}, inner "
+        f"{res['subiters']}, fobj {res['fobj']:.6f}, infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.4e}, linf "
+        f"{res['linfty']:.4e}; {wall:.2f} s = "
+        f"{wall / max(res['niter'], 1):.4f} s per outer iteration, "
+        f"{res['niter'] / wall:.3f} outer iterations/s; launches {launches}")
+    check(0.18 < res["fobj"] < 0.30,
+          f"fobj {res['fobj']:.4f} outside bench.py's band (0.18, 0.30)")
+    check(res["infeas"] < 1e-6, f"infeas {res['infeas']:.3e} >= 1e-6")
+    check(launches["qn_roll_update"] == res["niter"]
+          and launches["quasi_def_apply"] == launches["phi_gram"] == 0,
+          f"unexpected kernel launches on the FEM TR path: {launches}")
+
+
+def phase_tr_crosscheck(torch):
+    """FusedTR in float64, card against host."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    cases = (
+        ("synthetic n=2^14", lambda dev: SyntheticTopology(
+            n=1 << 14, block=BLOCK, dtype=torch.float64, device=dev)),
+        ("fem 12x6 mgcg", lambda dev: FEMTopology(
+            12, 6, cg_iters=25, solver="mgcg", dtype=torch.float64,
+            device=dev)),
+    )
+    for name, make in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res, _ = _tr_solver(make(dev), "float64",
+                                tr_max_iterations=10).solve()
+            out[dev] = (res["niter"], res["subiters"], res["fobj"])
+            log(f"[tr crosscheck] {name} {dev}: outer {out[dev][0]}, inner "
+                f"{out[dev][1]}, fobj {out[dev][2]:.15e}, converged "
+                f"{res['converged']} ({time.perf_counter() - t0:.2f} s)")
+        (kc, sc, fc), (kh, sh, fh) = out["cuda"], out["cpu"]
+        check(kc == kh and sc == sh,
+              f"{name}: iteration counts differ: cuda {kc}/{sc}, "
+              f"cpu {kh}/{sh}")
+        check(abs(fc - fh) <= 1e-9 * abs(fh),
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -527,11 +673,15 @@ def main():
         phase_mma_full(torch, dtype)
     phase_mma_bench(torch)
     phase_mma_crosscheck(torch)
+    tr_launches = phase_tr_full(torch)
+    phase_tr_bench(torch)
+    phase_tr_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
+                     "tr_launches": tr_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)

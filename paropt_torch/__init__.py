@@ -5,15 +5,17 @@ counterpart:
 
 - ``dtypes``, ``ops.veclib``: dtype resolution and vector reductions;
 - ``problem``, ``models``: the Problem protocol (autodiff through
-  ``torch.func``), the synthetic topology workload and the 2-D SIMP
-  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology);
+  ``torch.func``), the synthetic topology workload, the 2-D SIMP
+  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology)
+  and the small analytic problems (``models.analytic``);
 - ``ops.qn``, ``ops.kkt``: the compact quasi-Newton state and the KKT
   factor/solve;
 - ``ip_fused``: the fused interior-point major iteration, its host loop and
   the facade's whole solve;
 - ``mma``: the fused MMA outer loop (FusedMMA, fused_mma_solve);
+- ``tr``: the fused SL1QP trust region (FusedTR) and its QP model;
 - ``optimizer``: the ``Optimizer`` facade (its ``use_fused_loop`` routes for
-  'ip' and 'mma'); ``utils.options``: the typed option registry;
+  'ip', 'tr' and 'mma'); ``utils.options``: the typed option registry;
 - ``ops.kernels``: hand-written CUDA kernels for Hopper (``csrc/*.cu``)
   that replace the three Pallas kernels of ``paropt_tpu/ops/
   pallas_kernels.py``, each beside its plain PyTorch version;
@@ -28,11 +30,12 @@ from .problem import Problem, SparseJacobian
 from .ops.qn import QNState, qn_init
 from .ip_fused import FusedIP, fused_ip_optimize
 from .mma import FusedMMA, fused_mma_solve
+from .tr import FusedTR
 from .optimizer import Optimizer
 from .utils.options import make_options
 
 __all__ = ["Problem", "SparseJacobian", "QNState", "qn_init", "FusedIP",
-           "fused_ip_optimize", "FusedMMA", "fused_mma_solve", "Optimizer",
-           "make_options", "default_float", "resolve_dtype"]
+           "fused_ip_optimize", "FusedMMA", "fused_mma_solve", "FusedTR",
+           "Optimizer", "make_options", "default_float", "resolve_dtype"]
 
 __version__ = "0.1.0"

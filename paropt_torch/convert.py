@@ -3,9 +3,9 @@
 Each function takes a dict holding one entry per dataclass field: numpy
 arrays for the tensor fields (e.g. ``np.asarray`` of a JAX leaf), plain
 Python values for the static fields, and nested dicts for nested states
-(``FusedState.vars``, ``FusedState.qn``).  This lets one step of each package
-(an IP step, or an MMA outer iteration) start from the same mid-trajectory
-state.  No jax is imported here: a JAX
+(``FusedState.vars``, ``FusedState.qn``, ``FusedTRState.qn``).  This lets one
+step of each package (an IP step, an MMA or a TR outer iteration) start from
+the same mid-trajectory state.  No jax is imported here: a JAX
 bfloat16 array arrives as numpy's ``bfloat16`` extension dtype and is
 reinterpreted bit for bit.
 """
@@ -21,11 +21,13 @@ from .ip_fused import FusedState
 from .mma import FusedMMAState
 from .ops.kkt import IPVars, ProblemData
 from .ops.qn import QNState
+from .tr import FusedTRState
 
 __all__ = ["to_tensor", "problem_data", "ip_vars", "qn_state", "fused_state",
-           "fused_mma_state"]
+           "fused_mma_state", "fused_tr_state"]
 
-_NESTED = {(FusedState, "vars"): IPVars, (FusedState, "qn"): QNState}
+_NESTED = {(FusedState, "vars"): IPVars, (FusedState, "qn"): QNState,
+           (FusedTRState, "qn"): QNState}
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -77,3 +79,8 @@ def fused_state(fields: dict, device="cpu") -> FusedState:
 def fused_mma_state(fields: dict, device="cpu") -> FusedMMAState:
     """The port's MMA outer-loop state from JAX's `FusedMMAState`."""
     return _from_fields(FusedMMAState, fields, device)
+
+
+def fused_tr_state(fields: dict, device="cpu") -> FusedTRState:
+    """The port's TR outer-loop state from JAX's `FusedTRState`."""
+    return _from_fields(FusedTRState, fields, device)

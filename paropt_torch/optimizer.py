@@ -3,8 +3,9 @@
 One entry point that dispatches on the ``algorithm`` option ('ip' | 'tr' |
 'mma') and exposes the optimized point uniformly
 (`ParOptOptimizer.cpp:65-221`).  Ported so far: the ``use_fused_loop``
-routes of 'ip' (`ip_fused.fused_ip_optimize`) and 'mma' (`mma.FusedMMA`).
-Every other route raises NotImplementedError naming its ROADMAP item.
+routes of 'ip' (`ip_fused.fused_ip_optimize`), 'tr' (`tr.FusedTR`) and
+'mma' (`mma.FusedMMA`).  Every other route raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from .utils.options import OptionRegistry, make_options
 __all__ = ["Optimizer"]
 
 _UNPORTED = {
-    ("tr", True): "FusedTR is not ported yet (ROADMAP queue 1 item 9)",
     ("tr", False): "the host-loop TrustRegion is not ported yet "
                    "(ROADMAP queue 1 item 11)",
     ("ip", False): "the host-loop InteriorPoint is not ported yet "
@@ -48,8 +48,11 @@ class Optimizer:
             self._result, self._fused_state = fused_ip_optimize(
                 self.problem, self.options)
         else:
-            from .mma import FusedMMA
-            self._inner = FusedMMA(self.problem, self.options)
+            if algo == "tr":
+                from .tr import FusedTR as solver
+            else:
+                from .mma import FusedMMA as solver
+            self._inner = solver(self.problem, self.options)
             self._result, self._fused_state = self._inner.solve()
         return self._result
 
@@ -61,7 +64,12 @@ class Optimizer:
         if self.algorithm == "ip":
             v = st.vars
             return v.x, v.z, v.zw, v.zl, v.zu
-        return st.x, st.z, st.zw, st.zl, st.zu
+        if self.algorithm == "mma":
+            return st.x, st.z, st.zw, st.zl, st.zu
+        raise RuntimeError(
+            "multipliers live inside FusedTR's inner QP solves; the host "
+            "TrustRegion (use_fused_loop=False), which exposes them, is not "
+            "ported yet (ROADMAP queue 1 item 11)")
 
     @property
     def result(self) -> Optional[Dict[str, Any]]:

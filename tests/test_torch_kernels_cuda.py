@@ -11,7 +11,9 @@ storage (f32 accumulation) 1e-5, the reordering of the sums."""
 import pytest
 import torch
 
+from paropt_torch.models.topology import SyntheticTopology
 from paropt_torch.ops import kernels
+from paropt_torch.tr import FusedTR
 
 from ._torch_parity import assert_close, cuda, qd_inputs  # noqa: F401
 
@@ -60,3 +62,25 @@ def test_cuda_phi_gram_matches_plain(cuda, dtype):
                              kernels.phi_gram_plain(*args)):
             assert_close(got, want, rtol=rtol,
                          atol=rtol * float(want.abs().max()))
+
+
+def test_cuda_fused_tr_launches_every_kernel_and_matches_host(cuda):
+    """FusedTR on SyntheticTopology(4096) in float64: on the card the
+    steering and QP solves launch the quasi-definite apply, every QP factor
+    setup phi_gram and every outer QN update qn_roll_update; the card run
+    takes the host run's outer and inner iterations, fobj to 1e-9."""
+    opts = {"tr_output_file": None, "output_file": None,
+            "tr_max_iterations": 6, "abs_res_tol": 1e-8}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = SyntheticTopology(n=4096, block=8, dtype=torch.float64,
+                                 device=dev)
+        kernels.reset_launches()
+        res, _ = FusedTR(prob, dict(opts)).solve()
+        out[dev.type] = (res, dict(kernels.LAUNCHES))
+    (rc, lc), (rh, lh) = out["cuda"], out["cpu"]
+    assert lc["qn_roll_update"] == rc["niter"]
+    assert lc["quasi_def_apply"] > 0 and lc["phi_gram"] > 0
+    assert not any(lh.values())
+    assert (rc["niter"], rc["subiters"]) == (rh["niter"], rh["subiters"])
+    assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])

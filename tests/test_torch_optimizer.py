@@ -6,7 +6,10 @@ paropt_torch.utils.options against paropt_tpu's.
   types, ranges and enum values.
 - `Optimizer(..., {"algorithm": "mma", "use_fused_loop": True})` is
   `FusedMMA`'s solve; the fused 'ip' route takes the iterations of JAX's
-  `fused_ip_optimize` on SyntheticTopology(n=4096), fobj to 1e-10.
+  `fused_ip_optimize` on SyntheticTopology(n=4096), fobj to 1e-10; the
+  fused 'tr' route takes JAX's `FusedTR` iterations on the 8x4 FEM
+  (tests/test_drivers.py's case), fobj to 1e-10, and, as in JAX, has no
+  multipliers for `get_optimized_point`.
 - Every route not ported yet raises NotImplementedError.
 """
 
@@ -18,6 +21,8 @@ import pytest
 import torch
 
 from paropt_tpu import ip_fused as jip
+from paropt_tpu.models.fem_topology import FEMTopology as JFEM
+from paropt_tpu.optimizer import Optimizer as JOptimizer
 from paropt_tpu.models.topology import SyntheticTopology as JTopology
 from paropt_tpu.utils import options as joptions
 from paropt_torch import Optimizer, ip_fused as tip, mma as tmma
@@ -126,8 +131,30 @@ def test_fused_ip_optimize_write_output_cadence():
     assert make_write_output_hook(print, 0) is None
 
 
+def test_tr_route_matches_jax_fused_tr():
+    """tests/test_drivers.py's fused TR facade case on FEMTopology(8, 4,
+    mgcg): the port's route takes JAX's outer and inner iterations to the
+    same fobj, and get_optimized_point raises as JAX's does."""
+    opts = {"algorithm": "tr", "use_fused_loop": True, "output_file": None,
+            "tr_output_file": None, "tr_max_iterations": 10}
+    jopt = JOptimizer(JFEM(nex=8, ney=4, cg_iters=25, solver="mgcg"),
+                      dict(opts))
+    jres = jopt.optimize()
+    opt = Optimizer(TFEM(8, 4, cg_iters=25, solver="mgcg", dtype=F64),
+                    dict(opts))
+    res = opt.optimize()
+    assert res["fobj"] < 0.9 and res["infeas"] < 1e-6
+    assert (res["niter"], res["subiters"]) == (jres["niter"],
+                                               jres["subiters"])
+    assert res["fobj"] == pytest.approx(jres["fobj"], rel=1e-10)
+    with pytest.raises(RuntimeError, match="FusedTR"):
+        jopt.get_optimized_point()
+    with pytest.raises(RuntimeError, match="FusedTR"):
+        opt.get_optimized_point()
+
+
 @pytest.mark.parametrize("algorithm,fused", [
-    ("tr", True), ("tr", False), ("ip", False), ("mma", False)])
+    ("tr", False), ("ip", False), ("mma", False)])
 def test_unported_routes_raise(algorithm, fused):
     opt = Optimizer(TTopology(n=64, block=8, dtype=F64),
                     {"algorithm": algorithm, "use_fused_loop": fused})
