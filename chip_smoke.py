@@ -9,8 +9,16 @@ Phases (any failure raises and exits nonzero without the final line):
    limit, turns TF32 off and checks it;
 2. build: compiles the CUDA kernels from paropt_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at one ragged size, with the device time of
-   both (CUDA events, median of 20 runs after warm-up, L2 flushed);
+   the main path's shapes and at ragged sizes (phi_gram as the factor setup
+   calls it: the stack as two row blocks, bw = 0), and two runs of each
+   quasi-definite kernel bitwise equal.  At the main path's shapes in
+   float32: the device time of kernel and plain version (CUDA events,
+   median of 20 runs after warm-up, L2 flushed), the bound (the bytes the
+   function moves over 3.35 TB/s or its float32 operations over
+   67 TFLOP/s, whichever is larger) and the share of it reached, with
+   nvidia-smi's SM clock, power draw and power limit sampled after each;
+   phi_gram must beat its unfused yardstick (quasi_def_apply at K = 21 plus
+   torch.mm for the Gram matrix), timed beside it;
 4. slice: the fused interior-point solve of SyntheticTopology at n = 2^20
    in float32 (in-loop L-BFGS, msub 10, abs_res_tol 1e-6, no refinement),
    which must converge and must launch every kernel;
@@ -58,8 +66,9 @@ Phases (any failure raises and exits nonzero without the final line):
 
 The line before the last is a JSON object with one entry per kernel (its
 launches in the phase-4 IP solve and, as tr_launches, in the phase-9 TR
-solve); the last line is {"ok": true, "device": {...}}.  Only torch and
-numpy are used.
+solve; its phase-3 error, times and bound; library_ms is null, since no
+single PyTorch call computes any of the three functions); the last line is
+{"ok": true, "device": {...}}.  Only torch and numpy are used.
 """
 
 import json
@@ -90,6 +99,10 @@ N_MAIN = 1 << 20
 MSUB = 10
 BLOCK = 8
 L2_FLUSH_BYTES = 256 << 20   # written between timed runs; the L2 is 50 MB
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 SPIN_CYCLES = 100_000_000    # ~50 ms at the H100's clock
 
 
@@ -102,10 +115,13 @@ def check(cond, msg):
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def cuda_ms(torch, fn, reps=20, warmup=3):
+def cuda_ms(torch, fn, reps=20, warmup=3, clean=False):
     """Median device time of fn() in milliseconds over `reps` runs, each
     between a pair of CUDA events, with the L2 cache flushed before each run
-    (an upper bound for a caller whose operands are partly in L2).  A spin
+    (an upper bound for a caller whose operands are partly in L2).  The
+    flush writes 256 MB, so each run starts with the L2 full of dirty lines
+    that its own traffic must write back; with `clean` it reads them
+    instead, and each run starts with a clean L2.  A spin
     kernel holds the stream while the host enqueues every run, so the
     events time the device's work and not the host's Python and launch
     overhead; if the host outran the spin, the spin is lengthened."""
@@ -120,7 +136,10 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
         torch.cuda.synchronize()
         torch.cuda._sleep(spin)
         for start, stop in events:
-            flush.zero_()
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
             start.record()
             fn()
             stop.record()
@@ -190,9 +209,33 @@ def _qd_inputs(torch, gen, K, k, W, dtype):
     return dinv, cwinv, vals, bx, bw
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms, what bounds it): the bytes the function must move
+    over the memory rate, or its float32 operations over the float32 rate,
+    whichever is larger."""
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = flops / F32_FLOPS_PER_S * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+def smi_sample():
+    """The card's SM clock, power draw and power limit, as nvidia-smi reads
+    them now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version; returns per-kernel results at
-    the main path's shapes in float32."""
+    the main path's shapes in float32 (error, times, bound)."""
     from paropt_torch.ops import kernels
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -211,6 +254,25 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         log(f"[kernels] {name} {label}: max abs err {worst:.3e}")
         return worst
+
+    def repeat_bitwise(name, label, fn, first):
+        again = fn()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name} {label}: two runs differ")
+        log(f"[kernels] {name} {label}: two runs bitwise equal")
+
+    def timed(name, label, fn, plain, nbytes, flops):
+        ms = cuda_ms(torch, fn)
+        pms = cuda_ms(torch, plain)
+        smi = smi_sample()
+        clean_ms = cuda_ms(torch, fn, clean=True)
+        bms, by = bound_ms(nbytes, flops)
+        log(f"[kernels] {name} {label}: {ms:.4f} ms kernel, {pms:.4f} ms "
+            f"plain; bound {bms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP), {100 * bms / ms:.1f}% of bound; "
+            f"clocks.sm, power.draw, power.limit: {smi}; kernel after a "
+            f"clean flush {clean_ms:.4f} ms ({100 * bms / clean_ms:.1f}%)")
+        return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
 
     # 1. qn_roll_update: [2m, n] buffer in f32 / f64 / bf16, upd both ways
     for n in (N_MAIN, 1000):
@@ -235,50 +297,91 @@ def phase_kernels(torch):
                     r = out.setdefault("qn_roll_update", {"max_abs_err": 0.0})
                     r["max_abs_err"] = max(r["max_abs_err"], err)
                 if n == N_MAIN and sdt == torch.float32 and flag:
-                    r["ms"] = cuda_ms(
-                        torch, lambda: kernels.qn_roll_update(buf, s, y, upd))
-                    r["plain_ms"] = cuda_ms(
-                        torch,
-                        lambda: kernels.qn_roll_update_plain(buf, s, y, upd))
+                    r.update(timed(
+                        "qn_roll_update", f"[{2 * MSUB}, {n}] f32",
+                        lambda: kernels.qn_roll_update(buf, s, y, upd),
+                        lambda: kernels.qn_roll_update_plain(buf, s, y, upd),
+                        _nbytes(buf, s, y, upd, ko, kd),
+                        4 * 2 * MSUB * n))
 
-    # 2./3. quasi_def_apply (K = 1 and 21) and phi_gram (B = 21)
+    # 2. quasi_def_apply: K = 1 (every step solve) and K = 21
     W_main = N_MAIN // BLOCK
     B = 2 * MSUB + 1
-    for W in (W_main, 1000):
+    for W in (W_main, 1000, 1001):
         for dt in (torch.float32, torch.float64):
             name = str(dt).split(".")[1]
             for K in (1, B):
                 args = _qd_inputs(torch, gen, K, BLOCK, W, dt)
+                label = f"K={K} k={BLOCK} nwcon={W} {name}"
                 got = kernels.quasi_def_apply(*args)
-                want = kernels.quasi_def_apply_plain(*args)
-                err = compare("quasi_def_apply",
-                              f"K={K} k={BLOCK} nwcon={W} {name}", got, want,
-                              name)
+                err = compare("quasi_def_apply", label, got,
+                              kernels.quasi_def_apply_plain(*args), name)
+                repeat_bitwise("quasi_def_apply", label,
+                               lambda: kernels.quasi_def_apply(*args), got)
                 if W == W_main and dt == torch.float32:
                     r = out.setdefault("quasi_def_apply",
                                        {"max_abs_err": 0.0})
                     r["max_abs_err"] = max(r["max_abs_err"], err)
-                    ms = cuda_ms(torch, lambda: kernels.quasi_def_apply(*args))
-                    pms = cuda_ms(
-                        torch, lambda: kernels.quasi_def_apply_plain(*args))
-                    log(f"[kernels] quasi_def_apply K={K} f32: "
-                        f"{ms:.4f} ms kernel, {pms:.4f} ms plain")
+                    t = timed("quasi_def_apply", f"K={K} f32",
+                              lambda: kernels.quasi_def_apply(*args),
+                              lambda: kernels.quasi_def_apply_plain(*args),
+                              _nbytes(*args, *got),
+                              K * W * (6 * BLOCK + 2))
                     if K == 1:  # the main path's step and init solves
-                        r["ms"], r["plain_ms"] = ms, pms
-            args = _qd_inputs(torch, gen, B, BLOCK, W, dt)
-            got = kernels.phi_gram(*args)
-            want = kernels.phi_gram_plain(*args)
-            err = compare("phi_gram", f"B={B} k={BLOCK} nwcon={W} {name}",
-                          got, want, name)
+                        r.update(t)
+
+    # 3. phi_gram, B = 21, as the factor setup calls it: the stack as its
+    # Z_qn rows (2m) and A's row, bw = 0; and whole with a bw
+    for W in (W_main, 1000, 1001):
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[1]
+            dinv, cwinv, vals, bx, bw = _qd_inputs(torch, gen, B, BLOCK, W, dt)
+            z, a = bx[:2 * MSUB], bx[2 * MSUB:]
+            label = f"B={B} k={BLOCK} nwcon={W} {name}"
+            got = kernels.phi_gram(dinv, cwinv, vals, z, None, a)
+            err = compare("phi_gram", label, got,
+                          kernels.phi_gram_plain(dinv, cwinv, vals, z, None,
+                                                 a), name)
+            repeat_bitwise("phi_gram", label, lambda: kernels.phi_gram(
+                dinv, cwinv, vals, z, None, a), got)
+            compare("phi_gram", label + " with bw",
+                    kernels.phi_gram(dinv, cwinv, vals, bx, bw),
+                    kernels.phi_gram_plain(dinv, cwinv, vals, bx, bw), name)
             if W == W_main and dt == torch.float32:
-                out["phi_gram"] = {
-                    "max_abs_err": err,
-                    "ms": cuda_ms(torch, lambda: kernels.phi_gram(*args)),
-                    "plain_ms": cuda_ms(
-                        torch, lambda: kernels.phi_gram_plain(*args))}
+                bw0 = torch.zeros_like(bw)
+
+                def unfused():
+                    # the yardstick: the apply at K = 21, then the Gram
+                    # matrix as one product (the port never calls this)
+                    yx, yw = kernels.quasi_def_apply(dinv, cwinv, vals, bx,
+                                                     bw0)
+                    return yx, yw, bx.reshape(B, -1) @ yx.reshape(B, -1).T
+
+                compare("phi_gram", label + " unfused yardstick", unfused(),
+                        got, name)
+                r = {"max_abs_err": err}
+                r.update(timed(
+                    "phi_gram", f"B={B} f32",
+                    lambda: kernels.phi_gram(dinv, cwinv, vals, z, None, a),
+                    lambda: kernels.phi_gram_plain(dinv, cwinv, vals, z,
+                                                   None, a),
+                    _nbytes(dinv, cwinv, vals, bx, *got),
+                    2 * B * B * BLOCK * W + B * W * (6 * BLOCK + 2)))
+                r["unfused_ms"] = cuda_ms(torch, unfused)
+                log(f"[kernels] phi_gram B={B} f32: unfused yardstick "
+                    f"(quasi_def_apply K={B} + torch.mm) "
+                    f"{r['unfused_ms']:.4f} ms against {r['ms']:.4f} ms "
+                    f"fused; clocks.sm, power.draw, power.limit: "
+                    f"{smi_sample()}")
+                check(r["ms"] < r["unfused_ms"],
+                      f"phi_gram {r['ms']:.4f} ms is not faster than its "
+                      f"unfused yardstick {r['unfused_ms']:.4f} ms")
+                out["phi_gram"] = r
     for name, r in out.items():
         log(f"[kernels] {name} main-path shape f32: {r['ms']:.4f} ms "
-            f"kernel, {r['plain_ms']:.4f} ms plain")
+            f"kernel, {r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f}"
+            f" ms by {r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}%);"
+            f" library call: none (no single PyTorch call computes it)")
     return out
 
 
@@ -683,7 +786,8 @@ def main():
                      "replaces": replaces, "launches": launches[name],
                      "tr_launches": tr_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,11 @@ counterpart:
 - ``convert``: numpy-dict conversion of paropt_tpu states into the port's.
 
 The package imports torch and numpy only, never jax.  Nothing here sets a
-global default dtype; every constructor takes an explicit device and dtype.
+global default dtype; every constructor takes a device and a dtype, and a device left out
+resolves to the CUDA card (``dtypes.resolve_device``).
 """
 
-from .dtypes import default_float, resolve_dtype
+from .dtypes import default_float, resolve_device, resolve_dtype
 from .problem import Problem, SparseJacobian
 from .ops.qn import QNState, qn_init
 from .ip_fused import FusedIP, fused_ip_optimize
@@ -36,6 +37,7 @@ from .utils.options import make_options
 
 __all__ = ["Problem", "SparseJacobian", "QNState", "qn_init", "FusedIP",
            "fused_ip_optimize", "FusedMMA", "fused_mma_solve", "FusedTR",
-           "Optimizer", "make_options", "default_float", "resolve_dtype"]
+           "Optimizer", "make_options", "default_float", "resolve_dtype",
+           "resolve_device"]
 
 __version__ = "0.1.0"

@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .dtypes import resolve_device
 from .ip_fused import FusedState
 from .mma import FusedMMAState
 from .ops.kkt import IPVars, ProblemData
@@ -30,10 +31,11 @@ _NESTED = {(FusedState, "vars"): IPVars, (FusedState, "qn"): QNState,
            (FusedTRState, "qn"): QNState}
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device=None) -> torch.Tensor:
     """A copy of a numpy (or numpy-convertible) array as a tensor of the
     same dtype and shape."""
     arr = np.asarray(a)
+    device = resolve_device(device)
     if arr.dtype.name == "bfloat16":
         bits = np.array(arr, order="C").view(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
@@ -55,7 +57,7 @@ def _from_fields(cls, fields: dict, device):
     return cls(**out)
 
 
-def problem_data(fields: dict, device="cpu") -> ProblemData:
+def problem_data(fields: dict, device=None) -> ProblemData:
     """ProblemData from its JAX fields (``Aw_callbacks`` is ignored;
     ``Aw_cols`` becomes int64 for indexing; ``Aw_vals_t`` is derived)."""
     fields = {k: v for k, v in fields.items() if k != "Aw_callbacks"}
@@ -64,23 +66,23 @@ def problem_data(fields: dict, device="cpu") -> ProblemData:
     return _from_fields(ProblemData, fields, device)
 
 
-def ip_vars(fields: dict, device="cpu") -> IPVars:
+def ip_vars(fields: dict, device=None) -> IPVars:
     return _from_fields(IPVars, fields, device)
 
 
-def qn_state(fields: dict, device="cpu") -> QNState:
+def qn_state(fields: dict, device=None) -> QNState:
     return _from_fields(QNState, fields, device)
 
 
-def fused_state(fields: dict, device="cpu") -> FusedState:
+def fused_state(fields: dict, device=None) -> FusedState:
     return _from_fields(FusedState, fields, device)
 
 
-def fused_mma_state(fields: dict, device="cpu") -> FusedMMAState:
+def fused_mma_state(fields: dict, device=None) -> FusedMMAState:
     """The port's MMA outer-loop state from JAX's `FusedMMAState`."""
     return _from_fields(FusedMMAState, fields, device)
 
 
-def fused_tr_state(fields: dict, device="cpu") -> FusedTRState:
+def fused_tr_state(fields: dict, device=None) -> FusedTRState:
     """The port's TR outer-loop state from JAX's `FusedTRState`."""
     return _from_fields(FusedTRState, fields, device)

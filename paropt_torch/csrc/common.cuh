@@ -54,15 +54,16 @@ __device__ __forceinline__ void block_sum2(TA& a, TA& b, TA* red) {
 }
 
 // out[i] = sum_p partials[p, i], one warp per output, lanes striding over p
-// and a fixed shuffle tree: the same inputs always give the same bits.
+// and a fixed shuffle tree: the same inputs always give the same bits,
+// whatever the grid (one block, or one warp per output).
 template <typename TA>
 __global__ void reduce_partials_kernel(const TA* __restrict__ partials,
                                        TA* __restrict__ out, int nparts,
                                        int nout) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < nout; i += nwarps) {
+  const int warp = blockIdx.x * nwarps + (threadIdx.x >> 5);
+  for (int i = warp; i < nout; i += gridDim.x * nwarps) {
     TA acc = TA(0);
     for (int p = lane; p < nparts; p += 32) {
       acc += partials[static_cast<size_t>(p) * nout + i];
@@ -72,6 +73,35 @@ __global__ void reduce_partials_kernel(const TA* __restrict__ partials,
     }
     if (lane == 0) out[i] = acc;
   }
+}
+
+// Asynchronous copies from device memory to shared memory (cp.async, sm_80
+// and later).  N bytes (4, 8 or 16); with `valid` false nothing is read and
+// the N bytes are zero-filled, so a ragged edge needs no second branch.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int src_size = valid ? N : 0;
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_size)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(N), "r"(src_size)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace paropt

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dtypes import resolve_dtype
+from ..dtypes import resolve_device, resolve_dtype
 from ..problem import Problem, SparseJacobian
 
 __all__ = ["Rosenbrock", "SparseRosenbrock", "ScalableRosenbrock",
@@ -30,10 +30,10 @@ __all__ = ["Rosenbrock", "SparseRosenbrock", "ScalableRosenbrock",
 class _Analytic(Problem):
     """Holds the dtype and device of the problem's tensors."""
 
-    def __init__(self, *args, dtype=None, device="cpu", **kwargs):
+    def __init__(self, *args, dtype=None, device=None, **kwargs):
         super().__init__(*args, **kwargs)
         self._dtype = resolve_dtype(dtype)
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype=np.float64),
@@ -51,7 +51,7 @@ def _rosenbrock2(x):
 class Rosenbrock(_Analytic):
     """2-var Rosenbrock, one dense constraint c = x0 + x1 + 5 >= 0."""
 
-    def __init__(self, x0=None, dtype=None, device="cpu"):
+    def __init__(self, x0=None, dtype=None, device=None):
         super().__init__(nvars=2, ncon=1, dtype=dtype, device=device)
         self._x0 = (-1.5, -1.0) if x0 is None else x0
 
@@ -69,7 +69,7 @@ class SparseRosenbrock(_Analytic):
     """Rosenbrock with the linear constraint as a sparse weighting
     constraint (nwcon=1, nwblock=1)."""
 
-    def __init__(self, x0=None, dtype=None, device="cpu"):
+    def __init__(self, x0=None, dtype=None, device=None):
         super().__init__(nvars=2, ncon=0, nwcon=1, nwblock=1, dtype=dtype,
                          device=device)
         self._x0 = (-1.5, -1.0) if x0 is None else x0
@@ -95,7 +95,7 @@ class ScalableRosenbrock(_Analytic):
     sparse group constraints cw = group/2 - sum(x_group) >= 0."""
 
     def __init__(self, n=64, group=4, use_sparse=True, dtype=None,
-                 device="cpu"):
+                 device=None):
         if n % group:
             raise ValueError("n must be a multiple of group")
         nwcon = n // group if use_sparse else 0
@@ -131,7 +131,7 @@ class RandomConvexQP(_Analytic):
     """Convex QP:  min 1/2 x'Qx - b'x  s.t.  Ax - 1 >= 0, 0 <= x <= 10
     with random SPD Q."""
 
-    def __init__(self, n=32, ncon=4, seed=0, dtype=None, device="cpu"):
+    def __init__(self, n=32, ncon=4, seed=0, dtype=None, device=None):
         super().__init__(nvars=n, ncon=ncon, dtype=dtype, device=device)
         rng = np.random.default_rng(seed)
         M = rng.standard_normal((n, n)) / np.sqrt(n)
@@ -153,7 +153,7 @@ class Sellar(_Analytic):
     """The reduced Sellar form: min x0² + x1 + x2 + exp(-x3) with two
     constraints."""
 
-    def __init__(self, dtype=None, device="cpu"):
+    def __init__(self, dtype=None, device=None):
         super().__init__(nvars=4, ncon=2, dtype=dtype, device=device)
 
     def objective(self, x):
@@ -173,7 +173,7 @@ class SimpleQuadratic(_Analytic):
     """min ||x - x_target||² in [-1, 1]^n; the optimum is
     clip(x_target, -1, 1)."""
 
-    def __init__(self, n=16, target_scale=2.0, dtype=None, device="cpu"):
+    def __init__(self, n=16, target_scale=2.0, dtype=None, device=None):
         super().__init__(nvars=n, ncon=0, dtype=dtype, device=device)
         self.target = self._tensor(np.linspace(-target_scale, target_scale,
                                                n))
@@ -193,7 +193,7 @@ class Maratos(_Analytic):
     the EQUALITY x0² + x1² - 2 = 0 (ninequality=0), x in [-10, 10]² from
     (1, 1); x* = (sqrt(2), 0)."""
 
-    def __init__(self, x0=(1.0, 1.0), dtype=None, device="cpu"):
+    def __init__(self, x0=(1.0, 1.0), dtype=None, device=None):
         super().__init__(nvars=2, ncon=1, ninequality=0, dtype=dtype,
                          device=device)
         self._x0 = x0
@@ -215,7 +215,7 @@ class RandomQuadratic(_Analytic):
     """min 1/2 x'Ax + b'x with A = Q diag(eigs) Q' (Q random orthogonal)
     subject to a'x + b0 >= 0, x in [-5, 5]^n."""
 
-    def __init__(self, eigs, seed=0, dtype=None, device="cpu"):
+    def __init__(self, eigs, seed=0, dtype=None, device=None):
         eigs = np.asarray(eigs, dtype=float)
         n = eigs.size
         super().__init__(nvars=n, ncon=1, dtype=dtype, device=device)
@@ -241,7 +241,7 @@ class Toy(_Analytic):
     """Min-norm point inside two intersecting balls: min Σx² subject to
     9 - |x - c_i|² >= 0 for two centers, x in [0, 5]³."""
 
-    def __init__(self, dtype=None, device="cpu"):
+    def __init__(self, dtype=None, device=None):
         super().__init__(nvars=3, ncon=2, dtype=dtype, device=device)
         self.centers = self._tensor([[5.0, 2.0, 1.0], [3.0, 4.0, 3.0]])
 

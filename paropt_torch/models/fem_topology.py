@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..dtypes import resolve_dtype
+from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
 from ..problem import Problem, SparseJacobian
 
@@ -173,7 +173,7 @@ class FEMTopology(Problem):
                  filter_radius: int = 1, cg_iters: int = 200,
                  solver: str = "jacobi", mg_smooth: int = 2,
                  mg_omega: float = 0.5, dtype=None, seed: int = 0,
-                 device="cpu"):
+                 device=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         ne = nex * ney
@@ -185,7 +185,7 @@ class FEMTopology(Problem):
         super().__init__(nvars=ne, ncon=1, nwcon=nwcon, nwblock=1)
         dt = resolve_dtype(dtype)
         self._dtype = dt
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self.nex, self.ney = nex, ney
         self.volume_fraction = volume_fraction
         self.penal = penal
@@ -465,7 +465,7 @@ class DMOFEMTopology(Problem):
                  e_mats=(1.0, 0.55, 0.25), rho_mats=(1.0, 0.5, 0.2),
                  mass_fraction: float = 0.3, penal: float = 3.0,
                  cg_iters: int = 300, solver: str = "jacobi", dtype=None,
-                 device="cpu"):
+                 device=None):
         dt = resolve_dtype(dtype)
         self.fem = FEMTopology(nex=nex, ney=ney, cg_iters=cg_iters,
                                solver=solver, dtype=dt, device=device)

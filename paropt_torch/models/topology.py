@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..dtypes import resolve_dtype
+from ..dtypes import resolve_device, resolve_dtype
 from ..problem import Problem, SparseJacobian
 
 __all__ = ["SyntheticTopology"]
@@ -25,7 +25,7 @@ class SyntheticTopology(Problem):
     def __init__(self, n: int = 1 << 20, block: int = 8,
                  filter_width: int = 5, volume_fraction: float = 0.4,
                  block_cap: float = 0.6, seed: int = 0,
-                 use_sparse: bool = True, dtype=None, device="cpu"):
+                 use_sparse: bool = True, dtype=None, device=None):
         if n % block:
             raise ValueError("n must be a multiple of block")
         nwcon = n // block if use_sparse else 0
@@ -34,7 +34,7 @@ class SyntheticTopology(Problem):
         self.volume_fraction = volume_fraction
         self.block_cap = block_cap
         self._dtype = resolve_dtype(dtype)
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         rng = np.random.default_rng(seed)
         self.w = self._tensor(0.5 + rng.random(n))
         k = np.hanning(filter_width + 2)[1:-1]

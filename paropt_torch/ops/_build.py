@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of paropt_torch at first use.
 
 The sources in ``paropt_torch/csrc`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``.  The library goes to ``build/paropt_torch_kernels/<hash>/`` at the
-root of the checkout, keyed by a hash of the sources and flags, so a changed
-source builds anew and an unchanged one is built once.  A failed build raises
+(``sm_90a``), one process per source, all started together, and linked into
+ONE shared library with a plain C interface, loaded with ``ctypes``.  The
+library goes to ``build/paropt_torch_kernels/<hash>/`` at the root of the
+checkout, keyed by a hash of the sources and flags, so a changed source
+builds anew and an unchanged one is built once.  A failed build raises
 with nvcc's output in the message.
 
 Nothing here runs at import: the first kernel launch calls `load_library`.
@@ -28,7 +29,7 @@ BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "paropt_torch_kernels")
 LIB_NAME = "libparopt_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,10 +38,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     **{f"paropt_qn_roll_update_{sfx}": [_P] * 7 + [_I, _L, _I, _P]
        for sfx in ("f32", "f64", "bf16")},
-    **{f"paropt_quasi_def_apply_{sfx}": [_P] * 7 + [_I, _I, _L, _P]
+    **{f"paropt_quasi_def_apply_{sfx}": [_P] * 7 + [_I, _I, _L, _I, _P]
        for sfx in ("f32", "f64")},
-    **{f"paropt_phi_gram_{sfx}": [_P] * 9 + [_I, _I, _L, _I, _I, _P]
-       for sfx in ("f32", "f64")},
+    **{f"paropt_phi_gram_{sfx}": [_P] * 10 + [_I, _I, _I, _L] + [_I] * 6
+       + [_P] for sfx in ("f32", "f64")},
     "paropt_qn_roll_tile": [],
 }
 
@@ -86,17 +87,36 @@ def build_library() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    nvcc = _find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    objs = [out_dir / f"{src.stem}.{tag}.o"
+            for src in sorted(CSRC.glob("*.cu"))]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)]
+    cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *(str(o) for o in objs)])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}\n"
-            f"command: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = []
+    # every source at once, then the link
+    for group in (cmds[:-1], cmds[-1:]):
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in group]
+        for cmd, proc in zip(group, procs):
+            out, err = proc.communicate()
+            log.append(out + err)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}\n"
+                    f"command: {' '.join(cmd)}\n{out}{err}")
     build_seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    (out_dir / "build.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)  # atomic: a concurrent build just writes it twice
     return lib
 

@@ -30,7 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..dtypes import resolve_dtype
+from ..dtypes import resolve_device, resolve_dtype
 from ..tree import static_field, tmap
 from . import kernels
 from .veclib import matmul
@@ -106,8 +106,8 @@ class IPVars:
 
 
 def zero_vars(n: int, ncon: int, nwcon: int, dtype=None,
-              device="cpu") -> IPVars:
-    kw = dict(dtype=resolve_dtype(dtype), device=device)
+              device=None) -> IPVars:
+    kw = dict(dtype=resolve_dtype(dtype), device=resolve_device(device))
     zn = torch.zeros(n, **kw)
     zc = torch.zeros(ncon, **kw)
     zw = torch.zeros(nwcon, **kw)
@@ -392,11 +392,11 @@ def _setup_factor_fused(v: IPVars, d: ProblemData, Dinv, Gamma, C0,
     K = Zqn.shape[0]
     B = K + ncon
     k, nwcon = d.Aw_vals_t.shape
-    stack = torch.cat([Zqn, d.A]) if ncon else Zqn
+    # the stack [Z_qn; A] is read as its two row blocks, with bw = 0
     yx3, yw2, gram = kernels.phi_gram(
         Dinv.reshape(k, nwcon), 1.0 / (Cw_chol[:, 0, 0] ** 2), d.Aw_vals_t,
-        stack.reshape(B, k, nwcon),
-        torch.zeros((B, nwcon), dtype=dtype, device=Dinv.device))
+        Zqn.contiguous().reshape(K, k, nwcon), None,
+        d.A.contiguous().reshape(ncon, k, nwcon) if ncon else None)
     yx = yx3.reshape(B, d.n)
     yZ, Xa = yx[:K], yx[K:]
     ywZ, Wa = yw2[:K], yw2[K:]

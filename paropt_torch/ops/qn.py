@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..dtypes import resolve_dtype
+from ..dtypes import resolve_device, resolve_dtype
 from ..tree import static_field
 from . import kernels
 from .veclib import dot, matmul
@@ -92,10 +92,11 @@ def resolve_subspace_size(requested: int, auto: bool, nvars: int,
 def qn_init(msub: int, nvars: int, dtype=None, qn_type: str = "bfgs",
             update_type: str = "skip_negative_curvature",
             diag_type: str = "yty_over_yts", b0: float = 1.0,
-            storage_dtype=None, device="cpu") -> QNState:
+            storage_dtype=None, device=None) -> QNState:
     """``storage_dtype``: dtype of the [2m, n] ring buffer only; the small
     matrices and scalars stay in ``dtype``."""
     dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
     sdtype = dtype if storage_dtype is None else storage_dtype
     scaled = qn_type == "scaled_bfgs"
     kw = dict(dtype=dtype, device=device)

@@ -43,7 +43,7 @@ CASES = {
 
 def _pair(name):
     jcls, tcls, kw = CASES[name]
-    return jcls(**kw), tcls(**kw, dtype=F64)
+    return jcls(**kw), tcls(**kw, dtype=F64, device="cpu")
 
 
 def _points(jp):

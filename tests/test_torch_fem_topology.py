@@ -39,7 +39,8 @@ CASES = [(8, 4, "jacobi", 300), (12, 6, "mgcg", 25), (12, 8, "mgcg", 25)]
 def pair(request):
     nex, ney, solver, cg = request.param
     return (JFEM(nex, ney, cg_iters=cg, solver=solver),
-            TFEM(nex, ney, cg_iters=cg, solver=solver, dtype=F64))
+            TFEM(nex, ney, cg_iters=cg, solver=solver, dtype=F64,
+                 device="cpu"))
 
 
 def _design(n, seed):
@@ -136,7 +137,7 @@ def test_mg_setup_and_vcycle(nex, ney):
     """Per-level moduli and diagonals, the coarse factor and one V-cycle,
     on two-level and three-level hierarchies."""
     jp = JFEM(nex, ney, cg_iters=25, solver="mgcg")
-    tp = TFEM(nex, ney, cg_iters=25, solver="mgcg", dtype=F64)
+    tp = TFEM(nex, ney, cg_iters=25, solver="mgcg", dtype=F64, device="cpu")
     E = _moduli(jp, _design(tp.nvars, 2))
     jlev, (jc, _) = jp._mg_setup(jnp.asarray(E))
     tlev, tchol = tp._mg_setup(torch.as_tensor(E))
@@ -175,7 +176,7 @@ def test_objective_constraints_and_adjoint_gradient(pair):
 def test_adjoint_gradient_reuses_the_forward_solve():
     """The gradient costs one state solve (the forward's u is reused, no
     autograd through CG) and matches a central difference."""
-    tp = TFEM(8, 4, cg_iters=300, dtype=F64)
+    tp = TFEM(8, 4, cg_iters=300, dtype=F64, device="cpu")
     calls = []
     solve = tp._solve
     tp._solve = lambda E: calls.append(1) or solve(E)
@@ -191,7 +192,8 @@ def test_adjoint_gradient_reuses_the_forward_solve():
 def test_region_constraints_blocked():
     """Region caps: values, the 'blocked' Jacobian and its products."""
     jp = JFEM(8, 4, region=4, region_cap=0.7, cg_iters=250)
-    tp = TFEM(8, 4, region=4, region_cap=0.7, cg_iters=250, dtype=F64)
+    tp = TFEM(8, 4, region=4, region_cap=0.7, cg_iters=250, dtype=F64,
+              device="cpu")
     x = _design(tp.nvars, 10)
     assert (tp.nwcon, tp.nwblock) == (jp.nwcon, jp.nwblock) == (8, 1)
     assert_rel(tp.eval_sparse_con(torch.as_tensor(x)),
@@ -211,7 +213,7 @@ def test_region_constraints_blocked():
 
 def test_dmo_objective_gradient_and_sparse_constraints():
     jp = JDMO(12, 6, cg_iters=120)
-    tp = TDMO(12, 6, cg_iters=120, dtype=F64)
+    tp = TDMO(12, 6, cg_iters=120, dtype=F64, device="cpu")
     assert_rel(tp.c_scale, jp.c_scale, rtol=1e-12)
     x = np.random.default_rng(12).uniform(0.01, 0.5, tp.nvars)
     jx, tx = jnp.asarray(x), torch.as_tensor(x)
@@ -233,7 +235,7 @@ def test_dmo_objective_gradient_and_sparse_constraints():
 def test_tf32_off_and_mgcg_fallback_warns():
     torch.backends.cuda.matmul.allow_tf32 = True
     with pytest.warns(UserWarning, match="falls back to Jacobi"):
-        odd = TFEM(7, 5, cg_iters=400, solver="mgcg", dtype=F64)
+        odd = TFEM(7, 5, cg_iters=400, solver="mgcg", dtype=F64, device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     assert len(odd._mg_dims) == 1
@@ -241,7 +243,7 @@ def test_tf32_off_and_mgcg_fallback_warns():
     assert x0.dtype == lb.dtype == F64
     assert np.isfinite(float(odd.objective(x0)))
     with pytest.raises(ValueError):
-        TFEM(8, 4, solver="direct", dtype=F64)
+        TFEM(8, 4, solver="direct", dtype=F64, device="cpu")
 
 
 def test_interleave_transpose_is_exact():

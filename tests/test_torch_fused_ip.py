@@ -50,7 +50,7 @@ def _solvers(strategy, **options):
     opts = dict(dict(use_quasi_newton_update=True, barrier_strategy=strategy),
                 **options)
     jp = JTopology(n=N, block=8, dtype=jnp.float64)
-    tp = TTopology(n=N, block=8, dtype=torch.float64)
+    tp = TTopology(n=N, block=8, dtype=torch.float64, device="cpu")
     jf = jip.FusedIP(jip.model_from_problem(jp), N, 1, jp.nwcon, 1,
                      jip.FusedIPOptions(**opts), dtype=jnp.float64)
     tf = tip.FusedIP(tip.model_from_problem(tp), N, 1, tp.nwcon, 1,
@@ -58,7 +58,8 @@ def _solvers(strategy, **options):
     jd, jx0 = jip.data_template_from_problem(jp, dtype=jnp.float64)
     td, tx0 = tip.data_template_from_problem(tp, dtype=torch.float64)
     js = jf.init(jx0, jd, (), jqn.qn_init(MSUB, N, dtype=jnp.float64), None)
-    ts = tf.init(tx0, td, (), tqn.qn_init(MSUB, N, dtype=torch.float64),
+    ts = tf.init(tx0, td, (), tqn.qn_init(MSUB, N, dtype=torch.float64,
+                                          device="cpu"),
                  None)
     return jf, jd, js, tf, td, ts
 
@@ -80,7 +81,8 @@ def run(request):
     jf, jd, js, tf, td, ts = _solvers(request.param)
     out = dict(strategy=request.param, init=(js, ts), free=[], anchored=[])
     for _ in range(200):
-        anchor = tf.step(convert.fused_state(fields_of(js)), td, (), None)
+        anchor = tf.step(convert.fused_state(fields_of(js),
+                                             device="cpu"), td, (), None)
         js = jf.step(js, jd, (), None)
         ts = tf.step(ts, td, (), None)
         out["free"].append((_scalars(js), _scalars(ts)))
@@ -136,7 +138,8 @@ def test_predictor_corrector_side_by_side():
     trajectories part there (JAX converges in 150 steps, the port in 148)."""
     jf, jd, js, tf, td, ts = _solvers("mehrotra_predictor_corrector")
     for i in range(100):
-        anchor = tf.step(convert.fused_state(fields_of(js)), td, (), None)
+        anchor = tf.step(convert.fused_state(fields_of(js),
+                                             device="cpu"), td, (), None)
         js = jf.step(js, jd, (), None)
         ts = tf.step(ts, td, (), None)
         _assert_scalars_close(_scalars(ts), _scalars(js), name=f"step {i}")
@@ -181,7 +184,7 @@ def test_one_step_from_jax_mid_trajectory_state():
     jf, jd, js, tf, td, _ = _solvers("monotone")
     for _ in range(12):
         js = jf.step(js, jd, (), None)
-    ts = convert.fused_state(fields_of(js))
+    ts = convert.fused_state(fields_of(js), device="cpu")
     assert int(ts.qn.count) == int(js.qn.count) == MSUB
     js1 = jf.step(js, jd, (), None)
     ts1 = tf.step(ts, td, (), None)
@@ -191,7 +194,7 @@ def test_one_step_from_jax_mid_trajectory_state():
 
 def test_problem_data_matches_template():
     jp = JTopology(n=256, block=8, dtype=jnp.float64)
-    tp = TTopology(n=256, block=8, dtype=torch.float64)
+    tp = TTopology(n=256, block=8, dtype=torch.float64, device="cpu")
     jd, _ = jip.data_template_from_problem(jp, dtype=jnp.float64)
     td, _ = tip.data_template_from_problem(tp, dtype=torch.float64)
     assert td.Aw_layout == jd.Aw_layout == "blocked_t"
@@ -241,13 +244,14 @@ def test_solve_counts_host_syncs():
     """FusedIP.solve: a host loop reading `converged` after each step; the
     line search reads its `done` flag once per trial."""
     _, _, _, tf, td, _ = _solvers("monotone")
-    tp = TTopology(n=512, block=8, dtype=torch.float64)
+    tp = TTopology(n=512, block=8, dtype=torch.float64, device="cpu")
     td, x0 = tip.data_template_from_problem(tp, dtype=torch.float64)
     tf = tip.FusedIP(tip.model_from_problem(tp), 512, 1, tp.nwcon, 1,
                      tip.FusedIPOptions(use_quasi_newton_update=True,
                                         abs_res_tol=1e-5),
                      dtype=torch.float64)
-    st = tf.solve(x0, td, (), tqn.qn_init(4, 512, dtype=torch.float64))
+    st = tf.solve(x0, td, (), tqn.qn_init(4, 512, dtype=torch.float64,
+                                          device="cpu"))
     assert bool(st.converged) and float(st.res_norm) < 1e-5
     steps = int(st.k) + 1                    # the last step froze
     # neval = 1 + Σ (trials + 1) over the steps before the frozen one
@@ -257,7 +261,7 @@ def test_solve_counts_host_syncs():
 
 
 def test_unported_paths_raise_and_tf32_is_off():
-    tp = TTopology(n=64, block=8, dtype=torch.float64)
+    tp = TTopology(n=64, block=8, dtype=torch.float64, device="cpu")
     model = tip.model_from_problem(tp)
     with pytest.raises(NotImplementedError):
         tip.FusedIP(model, 64, 1, 8, 1,

@@ -64,6 +64,59 @@ def test_cuda_phi_gram_matches_plain(cuda, dtype):
                          atol=rtol * float(want.abs().max()))
 
 
+# the rebuilt kernels over stack heights, row counts (k <= 8 keeps a
+# column's rows in registers, k = 13 loops) and column counts: 4096 and
+# 1000 take the 16-byte paths (1000 with a ragged last tile in phi_gram),
+# 1001 the scalar ones
+SHAPES = [(B, k, nwcon) for B in (1, 7, 21, 22) for k in (1, 8, 13)
+          for nwcon in (4096, 1000, 1001)]
+DTYPES = [torch.float32, torch.float64]
+
+
+def _rtol(dtype):
+    return 1e-12 if dtype == torch.float64 else 1e-5
+
+
+def _held_to_plain(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g, w, rtol=_rtol(dtype),
+                     atol=_rtol(dtype) * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,k,nwcon", SHAPES)
+def test_cuda_quasi_def_shapes_repeat_bitwise(cuda, B, k, nwcon, dtype):
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda)
+            for a in qd_inputs(B, k, nwcon, seed=B + k + nwcon)]
+    got = kernels.quasi_def_apply(*args)
+    _held_to_plain(got, kernels.quasi_def_apply_plain(*args), dtype)
+    again = kernels.quasi_def_apply(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,k,nwcon", SHAPES)
+def test_cuda_phi_gram_shapes_repeat_bitwise(cuda, B, k, nwcon, dtype):
+    """The stack read whole with bw, and as two row blocks with bw = 0 (the
+    factor setup's call); two calls on the same inputs agree bit for bit."""
+    dinv, cwinv, vals, bx, bw = (
+        torch.as_tensor(a, dtype=dtype, device=cuda)
+        for a in qd_inputs(B, k, nwcon, seed=B * k + nwcon))
+    before = kernels.LAUNCHES["phi_gram"]
+    got = kernels.phi_gram(dinv, cwinv, vals, bx, bw)
+    assert kernels.LAUNCHES["phi_gram"] == before + 1
+    _held_to_plain(got, kernels.phi_gram_plain(dinv, cwinv, vals, bx, bw),
+                   dtype)
+    again = kernels.phi_gram(dinv, cwinv, vals, bx, bw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    top = max(1, B - 1)
+    tail = bx[top:] if top < B else None
+    split = kernels.phi_gram(dinv, cwinv, vals, bx[:top], None, tail)
+    _held_to_plain(split, kernels.phi_gram_plain(dinv, cwinv, vals, bx),
+                   dtype)
+
+
 def test_cuda_fused_tr_launches_every_kernel_and_matches_host(cuda):
     """FusedTR on SyntheticTopology(4096) in float64: on the card the
     steering and QP solves launch the quasi-definite apply, every QP factor

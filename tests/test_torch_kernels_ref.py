@@ -81,6 +81,21 @@ def test_phi_gram_plain_matches_pallas(B, nwcon):
         assert_close(got, want, rtol=RTOL64, atol=1e-11)
 
 
+@pytest.mark.parametrize("top", [7, 4])
+def test_phi_gram_split_stack_without_bw_matches_pallas(top):
+    """The factor setup's call: the stack as two row blocks and no bw, held
+    against the Pallas kernel on the concatenated stack with bw = 0."""
+    dinv, cwinv, vals, bx, _ = qd_inputs(7, 4, 128, seed=20 + top)
+    jout = pk.phi_gram_blocked_t(
+        *(jnp.asarray(a) for a in (dinv, cwinv, vals, bx)),
+        jnp.zeros((7, 128)), interpret=True)
+    t = [torch.as_tensor(a) for a in (dinv, cwinv, vals, bx)]
+    tail = t[3][top:] if top < 7 else None
+    tout = kernels.phi_gram(*t[:3], t[3][:top], None, tail)
+    for got, want in zip(tout, jout):
+        assert_close(got, want, rtol=RTOL64, atol=1e-11)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU every wrapper returns its plain version's result and
     launches nothing."""
@@ -115,6 +130,49 @@ def test_wrappers_reject_bad_operands():
                                torch.zeros(8), torch.tensor(1.0))
     with pytest.raises(ValueError):
         kernels.phi_gram_tile(B=400, k=64, itemsize=8)
+    with pytest.raises(ValueError, match="bx_tail"):
+        kernels.phi_gram(*args[:4], None, args[3][:, :3])
+    with pytest.raises(ValueError, match="bw"):
+        kernels.phi_gram(*args[:4], args[4], args[3])
+
+
+def test_phi_gram_plan_main_path():
+    """B = 2·10 + 1, k = 8 in f32 as the factor setup calls it (no bw):
+    32-column tiles, B padded to 24 (six 4 x 4 micro-tiles a side), an odd
+    31 slots a chunk, two blocks of 99,584 bytes on each SM; f64 halves the
+    tile."""
+    plan = kernels.phi_gram_plan(21, 8, 4, has_bw=False)
+    assert plan == (32, 24, 31, 1, 99584, 2)
+    assert kernels.phi_gram_tile(21, 8, 4) == 32
+    assert plan.smem == 4 * kernels._pg_smem_elems(21, 8, 32, 31, False)
+    assert kernels.phi_gram_plan(21, 8, 8, has_bw=False) == (16, 24, 31, 1,
+                                                             99584, 2)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("k", [1, 8, 13])
+@pytest.mark.parametrize("B", [1, 7, 21, 22, 64, 65, 128, 129])
+def test_phi_gram_plan_fits_or_refuses(B, k, itemsize):
+    """Every plan pads B to the 4 x 4 micro-tiles, gives each thread at
+    most four of them, keeps the slot count odd and the stage within the
+    SM's shared memory; a stack past 128 rows or too wide for a 4-column
+    tile is refused with "stack too tall"."""
+    try:
+        plan = kernels.phi_gram_plan(B, k, itemsize)
+    except ValueError as e:
+        assert "stack too tall" in str(e)
+        assert B > 64
+        return
+    assert plan.bpad % 4 == 0 and B <= plan.bpad < B + 4
+    assert plan.slots % 2 == 1 and plan.slots >= plan.bpad + plan.bpad // 4
+    assert (plan.bpad // 4) ** 2 <= 256 * plan.mt and plan.mt in (1, 2, 4)
+    assert plan.tile % 4 == 0
+    budget = 228 * 1024 // plan.blocks_per_sm - 1024
+    assert plan.smem <= min(budget, 227 * 1024)
+    assert plan.smem >= itemsize * kernels._pg_smem_elems(
+        B, k, plan.tile, plan.slots, True)
+    if B <= 22 and k <= 8:
+        assert plan.blocks_per_sm == 2
 
 
 # -- the build ---------------------------------------------------------------

@@ -33,13 +33,13 @@ def _build(layout, nwblock, ncon, msub=3):
     jd = jkkt.ProblemData(**{k: (jnp.asarray(v) if isinstance(v, np.ndarray)
                                  else v) for k, v in dnp.items()})
     jv = jkkt.IPVars(**{k: jnp.asarray(v) for k, v in vnp.items()})
-    td = convert.problem_data(fields_of(jd))
-    tv = convert.ip_vars(fields_of(jv))
+    td = convert.problem_data(fields_of(jd), device="cpu")
+    tv = convert.ip_vars(fields_of(jv), device="cpu")
     n = jd.n
     jq = jqn.qn_init(msub, n)
     for s, y in qn_pairs(n, msub):
         jq, _, _ = jqn.qn_update(jq, jnp.asarray(s), jnp.asarray(y))
-    tq = convert.qn_state(fields_of(jq))
+    tq = convert.qn_state(fields_of(jq), device="cpu")
     return jd, jv, td, tv, jqn.qn_compact(jq), tqn.qn_compact(tq)
 
 

@@ -100,13 +100,14 @@ def _inner_solvers(layout):
                      1, tip.FusedIPOptions(**opts), dtype=F64)
     jp = jmma.MMAParams(**{k: None if v is None else jnp.asarray(v)
                            for k, v in params.items()})
-    tp = tmma.MMAParams(**{k: None if v is None else convert.to_tensor(v)
+    tp = tmma.MMAParams(**{k: None if v is None
+                           else convert.to_tensor(v, device="cpu")
                            for k, v in params.items()})
     if has_sparse:
         tp = tp._replace(Aw_cols=tp.Aw_cols.long())
     jd = JProblemData(**{k: v if k in ("nwblock", "Aw_layout") or v is None
                          else jnp.asarray(v) for k, v in data.items()})
-    td = convert.problem_data(data)
+    td = convert.problem_data(data, device="cpu")
     js = jf.init(jnp.asarray(x0), jd, jp, None, None)
     ts = tf.init(torch.as_tensor(x0), td, tp, None, None)
     return jf, jd, jp, js, tf, td, tp, ts
@@ -136,7 +137,8 @@ def test_diag_hessian_inner_solve_side_by_side(layout):
     assert (td.Aw_cols is None) == (layout == "gather")
     assert_close(_scalars(ts), _scalars(js), rtol=1e-12, name="init")
     for i in range(100):
-        anchor = tf.step(convert.fused_state(fields_of(js)), td, tp, None)
+        anchor = tf.step(convert.fused_state(fields_of(js),
+                                             device="cpu"), td, tp, None)
         js = jf.step(js, jd, jp, None)
         ts = tf.step(ts, td, tp, None)
         _assert_scalars_close(_scalars(ts), _scalars(js), f"step {i}")
@@ -158,13 +160,14 @@ def test_diag_hessian_inner_solve_side_by_side(layout):
 PROBLEMS = {
     "fem12x6-mgcg": (lambda: JFEM(12, 6, cg_iters=25, solver="mgcg"),
                      lambda: TFEM(12, 6, cg_iters=25, solver="mgcg",
-                                  dtype=F64), 15),
+                                  dtype=F64, device="cpu"), 15),
     "regions8x4": (lambda: JFEM(8, 4, region=4, region_cap=0.7,
                                 cg_iters=250),
                    lambda: TFEM(8, 4, region=4, region_cap=0.7, cg_iters=250,
-                                dtype=F64), 15),
+                                dtype=F64, device="cpu"), 15),
     "dmo12x6": (lambda: JDMO(12, 6, cg_iters=120),
-                lambda: TDMO(12, 6, cg_iters=120, dtype=F64), 15),
+                lambda: TDMO(12, 6, cg_iters=120, dtype=F64,
+                             device="cpu"), 15),
 }
 
 
@@ -237,7 +240,7 @@ def test_one_outer_step_from_converted_state(presteps):
     js = jm._state0
     for _ in range(presteps):
         js = jm._step_jit(js)
-    ts = convert.fused_mma_state(fields_of(js))
+    ts = convert.fused_mma_state(fields_of(js), device="cpu")
     assert ts.k.dtype == torch.int32 and ts.converged.dtype == torch.bool
     js1, ts1 = jm._step_jit(js), tm._step(ts)
     for name in ("L", "U", "x", "l1", "linf", "infeas", "fobj", "z", "zl",
@@ -273,7 +276,7 @@ def test_f32_stall_criterion_terminates():
     and stalled, feasible and stationary relative to ||g||_1."""
     opts = dict(OPTS, mma_max_iterations=150, dtype="float32",
                 mma_max_no_improvement=10)
-    prob = TTopology(n=4096, block=8, dtype=torch.float32)
+    prob = TTopology(n=4096, block=8, dtype=torch.float32, device="cpu")
     r, _ = tmma.FusedMMA(prob, dict(opts)).solve()
     assert r["converged"] and r["stalled"], r
     assert r["niter"] < 150
@@ -287,7 +290,8 @@ def test_converged_loop_skips_the_inner_solve():
     JAX; once converged, a further outer step leaves x and the multipliers
     as they were and adds no inner iterations (JAX's lax.cond skip)."""
     opts = dict(OPTS, mma_max_iterations=60, mma_max_no_improvement=5)
-    tm = tmma.FusedMMA(TTopology(n=256, block=8, dtype=F64), dict(opts))
+    tm = tmma.FusedMMA(TTopology(n=256, block=8, dtype=F64,
+                                 device="cpu"), dict(opts))
     jm = jmma.FusedMMA(JTopology(n=256, block=8), dict(opts))
     tres, ts = tm.solve()
     jres, js = jm.solve(jit_loop=False)
@@ -310,7 +314,7 @@ def test_write_output_cadence_and_unported_paths():
         def write_output(self, it, x):
             calls.append(it)
 
-    prob = Recorded(8, 4, cg_iters=250, dtype=F64)
+    prob = Recorded(8, 4, cg_iters=250, dtype=F64, device="cpu")
     solver = tmma.FusedMMA(prob, dict(OPTS, mma_max_iterations=12,
                                       write_output_frequency=5))
     solver.solve()
@@ -321,12 +325,13 @@ def test_write_output_cadence_and_unported_paths():
         solver.solve_batched(None)
     # the base class's no-op write_output costs no hook
     from paropt_torch.utils.chunked import user_write_output
-    assert user_write_output(TFEM(8, 4, cg_iters=10, dtype=F64)) is None
+    assert user_write_output(TFEM(8, 4, cg_iters=10, dtype=F64,
+                                  device="cpu")) is None
     assert user_write_output(prob) is not None
 
 
 def test_fused_mma_solve_reuses_the_build():
-    prob = TFEM(8, 4, cg_iters=250, dtype=F64)
+    prob = TFEM(8, 4, cg_iters=250, dtype=F64, device="cpu")
     opts = dict(OPTS, mma_max_iterations=3)
     r1, _ = tmma.fused_mma_solve(prob, dict(opts))
     n_solvers = len(tmma._FUSED_MMA_CACHE)

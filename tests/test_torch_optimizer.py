@@ -80,9 +80,10 @@ def test_registry_equals_reference_table():
 def test_mma_route_is_fused_mma():
     opts = {"algorithm": "mma", "use_fused_loop": True,
             "mma_output_file": None, "mma_max_iterations": 6}
-    opt = Optimizer(TFEM(8, 4, cg_iters=250, dtype=F64), dict(opts))
+    opt = Optimizer(TFEM(8, 4, cg_iters=250, dtype=F64,
+                         device="cpu"), dict(opts))
     res = opt.optimize()
-    want, st = tmma.FusedMMA(TFEM(8, 4, cg_iters=250, dtype=F64),
+    want, st = tmma.FusedMMA(TFEM(8, 4, cg_iters=250, dtype=F64, device="cpu"),
                              dict(opts)).solve()
     assert res["niter"] == want["niter"] == 6
     assert res["fobj"] == want["fobj"]
@@ -99,7 +100,8 @@ def test_ip_route_matches_jax_fused_ip_optimize():
     iteration count and fobj to 1e-10."""
     opts = {"algorithm": "ip", "use_fused_loop": True, "output_file": None}
     jres, _ = jip.fused_ip_optimize(JTopology(n=4096, block=8), dict(opts))
-    opt = Optimizer(TTopology(n=4096, block=8, dtype=F64), dict(opts))
+    opt = Optimizer(TTopology(n=4096, block=8, dtype=F64,
+                              device="cpu"), dict(opts))
     res = opt.optimize()
     assert res["converged"] and jres["converged"]
     assert res["niter"] == jres["niter"]
@@ -119,12 +121,13 @@ def test_fused_ip_optimize_write_output_cadence():
             calls.append(it)
 
     res, _ = tip.fused_ip_optimize(
-        Recorded(n=512, block=8, dtype=F64),
+        Recorded(n=512, block=8, dtype=F64, device="cpu"),
         {"write_output_frequency": 10, "abs_res_tol": 1e-5})
     assert res["converged"]
     assert calls == [1] + list(range(10, res["niter"] + 1, 10))
     with pytest.raises(NotImplementedError):
-        tip.fused_ip_optimize(TTopology(n=64, block=8, dtype=F64),
+        tip.fused_ip_optimize(TTopology(n=64, block=8, dtype=F64,
+                                        device="cpu"),
                               {"ip_checkpoint_file": "ip.pt"})
     with pytest.raises(NotImplementedError):
         make_write_output_hook(print, 10, checkpoint_path="state.pt")
@@ -140,7 +143,8 @@ def test_tr_route_matches_jax_fused_tr():
     jopt = JOptimizer(JFEM(nex=8, ney=4, cg_iters=25, solver="mgcg"),
                       dict(opts))
     jres = jopt.optimize()
-    opt = Optimizer(TFEM(8, 4, cg_iters=25, solver="mgcg", dtype=F64),
+    opt = Optimizer(TFEM(8, 4, cg_iters=25, solver="mgcg", dtype=F64,
+                         device="cpu"),
                     dict(opts))
     res = opt.optimize()
     assert res["fobj"] < 0.9 and res["infeas"] < 1e-6
@@ -156,7 +160,7 @@ def test_tr_route_matches_jax_fused_tr():
 @pytest.mark.parametrize("algorithm,fused", [
     ("tr", False), ("ip", False), ("mma", False)])
 def test_unported_routes_raise(algorithm, fused):
-    opt = Optimizer(TTopology(n=64, block=8, dtype=F64),
+    opt = Optimizer(TTopology(n=64, block=8, dtype=F64, device="cpu"),
                     {"algorithm": algorithm, "use_fused_loop": fused})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         opt.optimize()
@@ -169,7 +173,8 @@ def test_registry_option_passes_through():
     reg = toptions.make_options({"algorithm": "mma", "use_fused_loop": True,
                                  "mma_max_iterations": 2,
                                  "dtype": "float32"}, which="facade")
-    opt = Optimizer(TFEM(8, 4, cg_iters=250, dtype=torch.float32), reg)
+    opt = Optimizer(TFEM(8, 4, cg_iters=250, dtype=torch.float32,
+                         device="cpu"), reg)
     assert opt.options is reg
     res = opt.optimize()
     assert res["niter"] == 2 and res["x"].dtype == torch.float32

@@ -87,7 +87,7 @@ def test_sparse_jacobian_products(layout, nwblock):
 
 def _topologies(n=256):
     return (JTopology(n=n, block=8, dtype=jnp.float64),
-            TTopology(n=n, block=8, dtype=torch.float64))
+            TTopology(n=n, block=8, dtype=torch.float64, device="cpu"))
 
 
 def test_problem_autodiff_defaults():
@@ -145,11 +145,11 @@ def test_sparse_products_fall_back_to_autodiff():
 
 def test_state_constructors():
     """zero_vars and qn_reset build the same fields as the JAX package."""
-    assert_fields_close(tkkt.zero_vars(16, 2, 4),
+    assert_fields_close(tkkt.zero_vars(16, 2, 4, device="cpu"),
                         jkkt.zero_vars(16, 2, 4, dtype=jnp.float64),
                         rtol=0, atol=0)
     rng = np.random.default_rng(7)
-    tq = tqn.qn_init(3, 16, dtype=torch.float64)
+    tq = tqn.qn_init(3, 16, dtype=torch.float64, device="cpu")
     jq = jqn.qn_init(3, 16, dtype=jnp.float64)
     for _ in range(2):
         s = rng.standard_normal(16)

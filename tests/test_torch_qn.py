@@ -48,7 +48,8 @@ def _run_pair(qn_type, update_type, storage):
                       storage_dtype=jnp.bfloat16 if storage else None)
     tst = tqn.qn_init(M, N, dtype=torch.float64, qn_type=qn_type,
                       update_type=update_type,
-                      storage_dtype=torch.bfloat16 if storage else None)
+                      storage_dtype=torch.bfloat16 if storage else None,
+                      device="cpu")
     steps = []
     for s, y, accept, z0 in _sequence():
         jz0 = z0 if qn_type == "scaled_bfgs" else None
@@ -105,7 +106,7 @@ def test_qn_state_converts_from_jax():
     """A JAX QN state arrives field for field through convert.qn_state and
     the next update agrees."""
     jst, _, _, _ = _run_pair("bfgs", "skip_negative_curvature", False)[3]
-    tst = convert.qn_state(fields_of(jst))
+    tst = convert.qn_state(fields_of(jst), device="cpu")
     assert tst.qn_type == jst.qn_type and tst.msub == M
     for name in ("buf", "SS", "SY", "count", "b0", "z0"):
         assert np.array_equal(np_of(getattr(tst, name)),
@@ -134,7 +135,7 @@ def test_kernel_branch_matches_jax_pallas_branch(monkeypatch, qn_type,
     jst = jqn.qn_init(M, N, qn_type=qn_type, update_type=update_type,
                       storage_dtype=sdt_j)
     tst = tqn.qn_init(M, N, qn_type=qn_type, update_type=update_type,
-                      storage_dtype=sdt_t)
+                      storage_dtype=sdt_t, device="cpu")
     rtol = 1e-5 if bf16 else RTOL
     for s, y, accept, _ in _sequence(seed=6):
         jst, jskip, _ = jqn.qn_update.__wrapped__(
@@ -152,7 +153,7 @@ def test_kernel_branch_matches_jax_pallas_branch(monkeypatch, qn_type,
 
 
 def test_accept_false_is_identity():
-    tst = tqn.qn_init(3, 64)
+    tst = tqn.qn_init(3, 64, device="cpu")
     rng = np.random.default_rng(9)
     for _ in range(2):
         s = torch.as_tensor(rng.standard_normal(64))

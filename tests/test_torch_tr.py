@@ -82,15 +82,17 @@ class _JBowl(JProblem):
 # name -> (JAX problem, port problem, options)
 CASES = {
     "synthetic256": (lambda: JTopology(n=256, block=8),
-                     lambda: TTopology(n=256, block=8, dtype=F64),
+                     lambda: TTopology(n=256, block=8, dtype=F64,
+                                       device="cpu"),
                      dict(SYN, tr_max_iterations=20)),
     "synthetic512-converge": (
         lambda: JTopology(n=512, block=8),
-        lambda: TTopology(n=512, block=8, dtype=F64),
+        lambda: TTopology(n=512, block=8, dtype=F64, device="cpu"),
         dict(SYN, tr_max_iterations=60, tr_l1_tol=0.0, tr_linfty_tol=1e-4)),
     "fem12x6-mgcg": (
         lambda: JFEM(12, 6, cg_iters=25, solver="mgcg"),
-        lambda: TFEM(12, 6, cg_iters=25, solver="mgcg", dtype=F64),
+        lambda: TFEM(12, 6, cg_iters=25, solver="mgcg", dtype=F64,
+                     device="cpu"),
         dict(BASE, tr_max_iterations=15, abs_res_tol=1e-7,
              tr_infeas_tol=1e-5, tr_l1_tol=0.0, tr_linfty_tol=1e-5)),
     # L-SR1 with the steering solve's subproblem model, on two
@@ -101,17 +103,18 @@ CASES = {
     # at outer iteration 5, and L-SR1 on Maratos and on SparseRosenbrock
     # turns on its skip test; one step from the same state agrees there
     "sellar-sr1-subproblem-objective": (
-        ja.Sellar, lambda: ta.Sellar(dtype=F64),
+        ja.Sellar, lambda: ta.Sellar(dtype=F64, device="cpu"),
         dict(BASE, tr_max_iterations=30, abs_res_tol=1e-8, qn_type="sr1",
              tr_adaptive_objective="subproblem_objective")),
-    "maratos": (ja.Maratos, lambda: ta.Maratos(dtype=F64),
+    "maratos": (ja.Maratos, lambda: ta.Maratos(dtype=F64, device="cpu"),
                 dict(BASE, tr_max_iterations=15, abs_res_tol=1e-8)),
     "sparse-rosenbrock": (
-        ja.SparseRosenbrock, lambda: ta.SparseRosenbrock(dtype=F64),
+        ja.SparseRosenbrock, lambda: ta.SparseRosenbrock(dtype=F64,
+                                                         device="cpu"),
         dict(BASE, tr_max_iterations=15, abs_res_tol=1e-8,
              tr_init_size=0.5, tr_max_size=10.0)),
     # fixed penalties: no steering solve, no penalty update
-    "toy-fixed-gamma": (ja.Toy, lambda: ta.Toy(dtype=F64),
+    "toy-fixed-gamma": (ja.Toy, lambda: ta.Toy(dtype=F64, device="cpu"),
                         dict(BASE, tr_max_iterations=15, abs_res_tol=1e-8,
                              tr_adaptive_gamma_update=False)),
 }
@@ -217,7 +220,7 @@ def test_one_outer_step_from_converted_state(name, presteps):
     run = _side_by_side(name)
     jstates = run["jstates"]
     assert len(jstates) > presteps + 1
-    ts = convert.fused_tr_state(fields_of(jstates[presteps]))
+    ts = convert.fused_tr_state(fields_of(jstates[presteps]), device="cpu")
     assert ts.k.dtype == torch.int32 and ts.qn.count.dtype == torch.int32
     _assert_state_close(run["tf"]._step(ts), jstates[presteps + 1],
                         rtol=1e-12)
@@ -269,7 +272,7 @@ def test_inner_ip_options_mapping():
             want = jtr._fused_ip_options(jo, barrier, start, slm)
             for field in got._fields:
                 assert getattr(got, field) == getattr(want, field), field
-    fus = ttr.FusedTR(TTopology(n=128, block=8, dtype=F64),
+    fus = ttr.FusedTR(TTopology(n=128, block=8, dtype=F64, device="cpu"),
                       dict(BASE, **extra))
     qp_opts, inf_opts = fus._step.args[3], fus._step.args[4]
     assert qp_opts.max_line_iters == inf_opts.max_line_iters == 7
@@ -324,7 +327,7 @@ def test_kernel_routes_per_solve(monkeypatch):
     monkeypatch.setattr(ttr, "_fused_solve_loop", loop)
     monkeypatch.setattr(ttr, "_fused_init", init)
     monkeypatch.setattr(tqn, "_qn_update", update)
-    fus = ttr.FusedTR(TTopology(n=256, block=8, dtype=F64),
+    fus = ttr.FusedTR(TTopology(n=256, block=8, dtype=F64, device="cpu"),
                       dict(SYN, tr_max_iterations=3))
     res, st = fus.solve()
     assert res["niter"] == 3
@@ -350,7 +353,7 @@ def test_tf32_turned_off():
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
-        prob = TTopology(n=64, block=8, dtype=F64)
+        prob = TTopology(n=64, block=8, dtype=F64, device="cpu")
         assert torch.backends.cuda.matmul.allow_tf32
         ttr.FusedTR(prob, dict(BASE))
         assert not torch.backends.cuda.matmul.allow_tf32
@@ -367,7 +370,7 @@ def test_write_output_cadence_and_unported_paths():
         def write_output(self, it, x):
             calls.append((it, x.shape))
 
-    fus = ttr.FusedTR(Recorded(n=64, block=8, dtype=F64),
+    fus = ttr.FusedTR(Recorded(n=64, block=8, dtype=F64, device="cpu"),
                       dict(BASE, tr_max_iterations=12,
                            tr_write_output_frequency=5, tr_l1_tol=0.0,
                            tr_linfty_tol=0.0))
