@@ -64,10 +64,38 @@ Phases (any failure raises and exits nonzero without the final line):
    once with CUDA tensors and once on the CPU: the same outer and inner
    iteration counts, fobj within 1e-9 relative.
 
+Phases 12-15 run the facade's default routes, the host loops
+(`Optimizer(problem, options)` with ``use_fused_loop`` left unset), writing
+their logs under build/:
+
+12. host TR at full width: phase 9's problem and options through
+   `Optimizer` (algorithm 'tr' by default).  It must converge with
+   infeasibility and linf below 1e-5, a finite x and fobj below its start,
+   take phase 9's outer iterations with fobj within 1e-5 relative of
+   phase 9's, launch every kernel, and write a log that `unpack_tr_output`
+   parses to one row per outer iteration; it prints the outer and inner
+   iterations, seconds and host reads per outer iteration, peak memory and
+   one further outer iteration under torch.profiler;
+13. host IP at full width: `Optimizer(..., {"algorithm": "ip", ...})` on
+   SyntheticTopology(n = 2^20) in float32 with phase 4's settings (L-BFGS
+   msub 10, abs_res_tol 1e-6, no refinement).  It must converge below
+   1e-6 (the reason is printed) and launch every kernel; it prints its
+   iterations beside phase 4's, seconds and host reads per iteration, peak
+   memory and one further iteration under torch.profiler;
+14. host MMA against FusedMMA: both on FEMTopology(768, 384, cg_iters=25,
+   solver="mgcg") in float64 for 5 outer iterations; fobj within 1e-9
+   relative, x within 1e-7, the same inner iterations, no kernel launched;
+15. card against host in float64: the host IP and TR on
+   SyntheticTopology(n = 2^14) and the host MMA on FEMTopology(24, 12,
+   mgcg), 10 outer iterations each (or to convergence), once with CUDA
+   tensors and once on the CPU: the same iteration counts, fobj within
+   1e-9 relative and equal integer columns in their logs.
+
 The line before the last is a JSON object with one entry per kernel (its
-launches in the phase-4 IP solve and, as tr_launches, in the phase-9 TR
-solve; its phase-3 error, times and bound; library_ms is null, since no
-single PyTorch call computes any of the three functions); the last line is
+launches in the phase-4 IP solve, as tr_launches in the phase-9 TR solve,
+and as host_tr_launches and host_ip_launches in phases 12 and 13; its
+phase-3 error, times and bound; library_ms is null, since no single
+PyTorch call computes any of the three functions); the last line is
 {"ok": true, "device": {...}}.  Only torch and numpy are used.
 """
 
@@ -80,6 +108,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
 
 # one row per kernel: wrapper name -> (source, replaced Pallas kernel)
 KERNELS = {
@@ -435,7 +464,7 @@ def phase_slice(torch):
           and torch.isfinite(state.vars.x).all().item(), "bad final x")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the solve")
-    return launches
+    return launches, iters
 
 
 def phase_crosscheck(torch):
@@ -471,16 +500,21 @@ TR_RANGES = ("paropt.tr.steer", "paropt.tr.qp", "paropt.tr.eval",
 
 
 def _profile_outer_step(torch, solver, state, names=MMA_RANGES):
-    """One outer iteration under torch.profiler: device ops, busy share of
-    the window, and device ms / ops / host ms inside each range of
-    ``names``."""
+    """One outer iteration of a fused solver under torch.profiler."""
+    return _profile_call(torch, lambda: solver._step(state), names)
+
+
+def _profile_call(torch, fn, names=()):
+    """``fn()`` under torch.profiler: the window, device ops, busy seconds
+    of the window, and device ops / device ms / host ms inside each range
+    of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver._step(state)
+        fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -703,7 +737,7 @@ def phase_tr_full(torch):
           f"fobj {res['fobj']:.6e} not below the start {f0:.6e}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the TR solve")
-    return launches
+    return launches, niter, res["fobj"]
 
 
 def phase_tr_bench(torch):
@@ -762,6 +796,207 @@ def phase_tr_crosscheck(torch):
               f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
 
 
+def _log_busy(tag, what, window, nops, busy):
+    log(f"{tag} {what} under the profiler: {window:.3f} s, {nops} device "
+        f"ops, device busy {busy:.4f} s = {100 * busy / window:.1f}% (idle "
+        f"{100 * (1 - busy / window):.1f}%)")
+
+
+def _host_route(torch, problem, options, log_name=None):
+    """`Optimizer(problem, options).optimize()` with the log (if named)
+    under build/, timed, with the kernel launches, peak memory and host
+    reads of the run.  Returns (optimizer, result, wall, launches, peak,
+    log path)."""
+    from paropt_torch import Optimizer
+    from paropt_torch.ops import kernels
+    path = None
+    options = dict(options, output_file=None, tr_output_file=None,
+                   mma_output_file=None)
+    if log_name is not None:
+        BUILD.mkdir(exist_ok=True)
+        path = BUILD / log_name
+        key = {"ip": "output_file", "tr": "tr_output_file",
+               "mma": "mma_output_file"}[options.get("algorithm", "tr")]
+        options[key] = str(path)
+    opt = Optimizer(problem, options)
+    check(opt.options["use_fused_loop"] is False,
+          "the facade's default route must be the host loop")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (opt, res, wall, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2**30, path)
+
+
+def phase_host_tr_full(torch, fused_niter, fused_fobj):
+    """The host TrustRegion, the facade's default, at n = 2^20 in float32;
+    returns the kernel launch counts of the solve."""
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.utils.logging import unpack_tr_output
+    tag = f"[host tr n={N_MAIN} float32]"
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    x0, _, _ = prob.get_vars_and_bounds()
+    f0 = float(prob.objective(x0))
+    opts = dict(TR_OPTS, dtype="float32", qn_subspace_size=MSUB)
+    opt, res, wall, launches, peak, path = _host_route(
+        torch, prob, opts, "chip_smoke_host.tr")
+    tr = opt._inner
+    check(type(tr).__name__ == "TrustRegion", "not the host TrustRegion")
+    niter, reads = res["niter"], tr.syncs.count
+    log(f"{tag} converged={res['converged']} outer iterations {niter} "
+        f"(phase 9: {fused_niter}), inner IP iterations {tr.inner_iters}; "
+        f"fobj {res['fobj']:.9e} (phase 9 {fused_fobj:.9e}, start "
+        f"{f0:.9e}), infeas {res['infeas']:.3e}, l1 {res['l1']:.6e}, linf "
+        f"{res['linfty']:.6e}")
+    log(f"{tag} wall {wall:.4f} s = {wall / max(niter, 1):.4f} s per outer "
+        f"iteration, {wall / max(tr.inner_iters, 1) * 1e3:.2f} ms per inner "
+        f"step; {reads} host reads = {reads / max(niter, 1):.1f} per outer "
+        f"iteration; peak memory {peak:.3f} GiB; kernel launches {launches}")
+    rows = unpack_tr_output(str(path))
+    log(f"{tag} {path.name}: {len(rows['iter'])} rows, iter "
+        f"{rows['iter'].astype(int).tolist()}")
+    # one further outer iteration from the converged point
+    tr.options["tr_max_iterations"] = 1
+    tr.options["tr_output_file"] = None
+    window, nops, busy, _ = _profile_call(torch, tr.optimize)
+    _log_busy(tag, "one further outer iteration", window, nops, busy)
+    x = res["x"]
+    check(x.shape == (N_MAIN,) and torch.isfinite(x).all().item(),
+          "bad final x")
+    check(res["converged"] and res["infeas"] < 1e-5 and res["linfty"] < 1e-5,
+          f"host TR did not converge: infeas {res['infeas']:.3e}, linf "
+          f"{res['linfty']:.3e}")
+    check(math.isfinite(res["fobj"]) and res["fobj"] < f0,
+          f"fobj {res['fobj']:.6e} not below the start {f0:.6e}")
+    check(niter == fused_niter, f"outer iterations {niter} != phase 9's "
+          f"{fused_niter}")
+    check(abs(res["fobj"] - fused_fobj) <= 1e-5 * abs(fused_fobj),
+          f"fobj {res['fobj']!r} differs from phase 9's {fused_fobj!r}")
+    check(rows["iter"].astype(int).tolist() == list(range(niter)),
+          f"{path.name} does not hold one row per outer iteration")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the host TR")
+    return launches
+
+
+def phase_host_ip_full(torch, fused_iters):
+    """The host InteriorPoint at n = 2^20 in float32 with phase 4's
+    settings; returns the kernel launch counts of the solve."""
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.utils.logging import unpack_output
+    tag = f"[host ip n={N_MAIN} float32]"
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    opts = {"algorithm": "ip", "dtype": "float32", "qn_subspace_size": MSUB,
+            "abs_res_tol": 1e-6, "iterative_refinement_steps": 0}
+    opt, res, wall, launches, peak, path = _host_route(
+        torch, prob, opts, "chip_smoke_host.out")
+    ip = opt._inner
+    niter, reads = res["niter"], ip.syncs.count
+    log(f"{tag} converged={res['converged']} reason={res['reason']!r} "
+        f"iterations {niter} (phase 4 FusedIP: {fused_iters}); fobj "
+        f"{res['fobj']:.9e}, res_norm {res['res_norm']:.3e}, mu "
+        f"{res['mu']:.3e}")
+    log(f"{tag} wall {wall:.4f} s = {wall / max(niter, 1) * 1e3:.2f} ms per "
+        f"iteration; {reads} host reads = {reads / max(niter, 1):.1f} per "
+        f"iteration; peak memory {peak:.3f} GiB; kernel launches {launches}")
+    rows = unpack_output(str(path))
+    log(f"{tag} {path.name}: {len(rows['iter'])} rows")
+    # one further iteration from the converged point
+    ip.options["starting_point_strategy"] = "no_start_strategy"
+    ip.options["max_major_iters"] = 1
+    ip.options["output_file"] = None
+    window, nops, busy, _ = _profile_call(torch, ip.optimize)
+    _log_busy(tag, "one further iteration", window, nops, busy)
+    check(res["converged"] and res["res_norm"] < 1e-6,
+          f"host IP did not converge below 1e-6: {res['reason']!r}, "
+          f"res_norm {res['res_norm']:.3e}")
+    check(torch.isfinite(res["x"]).all().item(), "bad final x")
+    check(rows["iter"].astype(int).tolist() == list(range(niter + 1)),
+          f"{path.name} does not hold one row per iteration")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the host IP")
+    return launches
+
+
+def phase_host_mma(torch):
+    """The host MMA against FusedMMA at 768x384 in float64."""
+    from paropt_torch.mma import FusedMMA
+    from paropt_torch.models.fem_topology import FEMTopology
+    tag = "[host mma 768x384 float64]"
+    prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
+                       dtype=torch.float64, device="cuda")
+    opts = {"algorithm": "mma", "mma_max_iterations": 5, "dtype": "float64"}
+    opt, res, wall, launches, peak, _ = _host_route(
+        torch, prob, opts, "chip_smoke_host.mma")
+    mma = opt._inner
+    t0 = time.perf_counter()
+    fres, fstate = FusedMMA(prob, dict(opts, mma_output_file=None)).solve()
+    torch.cuda.synchronize()
+    fwall = time.perf_counter() - t0
+    dx = (res["x"] - fres["x"]).abs().max().item()
+    log(f"{tag} host: {mma.mma_iter - 1} outer / {mma.subproblem_iter} inner "
+        f"iterations, fobj {res['fobj']:.15e}, {wall:.3f} s "
+        f"({mma.syncs.count} host reads); FusedMMA: {fres['niter']} / "
+        f"{int(fstate.subiters)}, fobj {fres['fobj']:.15e}, {fwall:.3f} s; "
+        f"max |x - x_fused| {dx:.3e}; launches {launches}")
+    check(mma.mma_iter - 1 == fres["niter"]
+          and mma.subproblem_iter == int(fstate.subiters),
+          "host and fused MMA iteration counts differ")
+    check(abs(res["fobj"] - fres["fobj"]) <= 1e-9 * abs(fres["fobj"]),
+          f"fobj differs: host {res['fobj']!r}, fused {fres['fobj']!r}")
+    check(dx <= 1e-7, f"x differs by {dx:.3e}")
+    check(not any(launches.values()),
+          f"a kernel ran on the host MMA/FEM path: {launches}")
+
+
+def phase_host_crosscheck(torch):
+    """The host loops in float64, card against host."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.utils import logging as plog
+
+    def syn(dev):
+        return SyntheticTopology(n=1 << 14, block=BLOCK, dtype=torch.float64,
+                                 device=dev)
+
+    cases = (
+        ("ip", syn, {"algorithm": "ip", "max_major_iters": 10},
+         plog.unpack_output, ("iter", "nobj", "ngrd", "nhvc")),
+        ("tr", syn, dict(TR_OPTS, tr_max_iterations=10),
+         plog.unpack_tr_output, ("iter",)),
+        ("mma", lambda dev: FEMTopology(24, 12, cg_iters=25, solver="mgcg",
+                                        dtype=torch.float64, device=dev),
+         {"algorithm": "mma", "mma_max_iterations": 10},
+         plog.unpack_mma_output, ("iter", "subiter")),
+    )
+    for name, make, opts, unpack, int_cols in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            opt, res, _, _, _, path = _host_route(
+                torch, make(dev), dict(opts, dtype="float64"),
+                f"chip_smoke_cross_{name}_{dev}.log")
+            rows = unpack(str(path))
+            out[dev] = (res["niter"], res["fobj"],
+                        [rows[c].astype(int).tolist() for c in int_cols])
+            log(f"[host crosscheck] {name} {dev}: niter {res['niter']}, fobj "
+                f"{res['fobj']:.15e}, converged {res['converged']}, "
+                f"{len(rows['iter'])} log rows "
+                f"({time.perf_counter() - t0:.2f} s)")
+        (kc, fc, ic), (kh, fh, ih) = out["cuda"], out["cpu"]
+        check(kc == kh, f"{name}: iteration counts differ: cuda {kc}, "
+              f"cpu {kh}")
+        check(abs(fc - fh) <= 1e-9 * abs(fh),
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+        check(ic == ih, f"{name}: integer log columns differ")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -770,21 +1005,27 @@ def main():
     phase_device(torch)
     phase_build()
     timing = phase_kernels(torch)
-    launches = phase_slice(torch)
+    launches, ip_iters = phase_slice(torch)
     phase_crosscheck(torch)
     for dtype in (torch.float32, torch.float64):
         phase_mma_full(torch, dtype)
     phase_mma_bench(torch)
     phase_mma_crosscheck(torch)
-    tr_launches = phase_tr_full(torch)
+    tr_launches, tr_niter, tr_fobj = phase_tr_full(torch)
     phase_tr_bench(torch)
     phase_tr_crosscheck(torch)
+    host_tr_launches = phase_host_tr_full(torch, tr_niter, tr_fobj)
+    host_ip_launches = phase_host_ip_full(torch, ip_iters)
+    phase_host_mma(torch)
+    phase_host_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "tr_launches": tr_launches[name],
+                     "host_tr_launches": host_tr_launches[name],
+                     "host_ip_launches": host_ip_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

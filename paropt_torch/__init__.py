@@ -10,12 +10,18 @@ counterpart:
   and the small analytic problems (``models.analytic``);
 - ``ops.qn``, ``ops.kkt``: the compact quasi-Newton state and the KKT
   factor/solve;
+- ``ip``: the host-loop interior-point method (InteriorPoint);
 - ``ip_fused``: the fused interior-point major iteration, its host loop and
   the facade's whole solve;
-- ``mma``: the fused MMA outer loop (FusedMMA, fused_mma_solve);
-- ``tr``: the fused SL1QP trust region (FusedTR) and its QP model;
-- ``optimizer``: the ``Optimizer`` facade (its ``use_fused_loop`` routes for
-  'ip', 'tr' and 'mma'); ``utils.options``: the typed option registry;
+- ``mma``: the host-loop MMA (MMA) and the fused MMA outer loop (FusedMMA,
+  fused_mma_solve);
+- ``tr``: the host-loop trust region (TrustRegion, with SL1QP and the
+  filter method) and the fused SL1QP trust region (FusedTR), with their
+  QP model;
+- ``optimizer``: the ``Optimizer`` facade (host loops by default, the fused
+  loops with ``use_fused_loop``); ``utils.options``: the typed option
+  registry; ``utils.logging``: the reference's fixed-width logs and their
+  parsers;
 - ``ops.kernels``: hand-written CUDA kernels for Hopper (``csrc/*.cu``)
   that replace the three Pallas kernels of ``paropt_tpu/ops/
   pallas_kernels.py``, each beside its plain PyTorch version;
@@ -27,16 +33,18 @@ resolves to the CUDA card (``dtypes.resolve_device``).
 """
 
 from .dtypes import default_float, resolve_device, resolve_dtype
-from .problem import Problem, SparseJacobian
+from .problem import Problem, SparseJacobian, check_gradients
 from .ops.qn import QNState, qn_init
+from .ip import InteriorPoint
 from .ip_fused import FusedIP, fused_ip_optimize
-from .mma import FusedMMA, fused_mma_solve
-from .tr import FusedTR
+from .mma import MMA, FusedMMA, fused_mma_solve
+from .tr import FusedTR, TrustRegion
 from .optimizer import Optimizer
 from .utils.options import make_options
 
-__all__ = ["Problem", "SparseJacobian", "QNState", "qn_init", "FusedIP",
-           "fused_ip_optimize", "FusedMMA", "fused_mma_solve", "FusedTR",
+__all__ = ["Problem", "SparseJacobian", "check_gradients", "QNState",
+           "qn_init", "InteriorPoint", "FusedIP", "fused_ip_optimize",
+           "MMA", "FusedMMA", "fused_mma_solve", "TrustRegion", "FusedTR",
            "Optimizer", "make_options", "default_float", "resolve_dtype",
            "resolve_device"]
 

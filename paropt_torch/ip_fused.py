@@ -28,11 +28,12 @@ import torch
 from torch.profiler import record_function
 
 from .dtypes import resolve_dtype
-from .ip import _barrier_terms, _infeas_l2
+from .ip import (HostSyncs, _apply_step, _bound_pads, _merit_eval,
+                 _merit_parts, _scale_step, _trial_point)
 from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
-from .ops.veclib import dot, matmul, multi_norm
+from .ops.veclib import multi_norm
 from .tree import tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
@@ -109,18 +110,6 @@ class FusedState:
     gmres_iters: torch.Tensor       # int32 NK iterations (always 0 here)
 
 
-class HostSyncs:
-    """Reads a 0-d bool tensor on the host and counts the reads: each one
-    waits for the device."""
-
-    def __init__(self):
-        self.count = 0
-
-    def __call__(self, flag: torch.Tensor) -> bool:
-        self.count += 1
-        return bool(flag)
-
-
 def _norms(r: IPVars, norm_type: str):
     prime = multi_norm([r.x, r.s, r.t], norm_type)
     dual = multi_norm([r.zl, r.zu, r.zs, r.zt, r.sw, r.tw, r.zsw, r.ztw],
@@ -194,16 +183,6 @@ class FusedIP:
 
 def _refresh_data(d: ProblemData, g, A, c, cw) -> ProblemData:
     return dataclasses.replace(d, g=g, A=A, c=c, cw=cw)
-
-
-def _bound_pads(d: ProblemData, dprec, dtype):
-    """Distance the clips keep x STRICTLY inside [lb, ub]: at least a few
-    ulps of the bound's magnitude, since design_precision (1e-14) is below
-    f32 resolution and a clip to lb + 1e-14 would leave x ON the bound."""
-    eps = torch.finfo(dtype).eps
-    lo = torch.clamp(4.0 * eps * (1.0 + torch.abs(d.lb)), min=dprec)
-    hi = torch.clamp(4.0 * eps * (1.0 + torch.abs(d.ub)), min=dprec)
-    return lo, hi
 
 
 def _get_compact(opts: FusedIPOptions, model: ModelFns, state: FusedState,
@@ -329,14 +308,6 @@ def _fused_init(model: ModelFns, opts: FusedIPOptions, x0, d: ProblemData,
         gmres_iters=zero_i)
 
 
-def _merit_fn(opts: FusedIPOptions, d: ProblemData, x, s, t, sw, tw, fobj,
-              c, cw, mu, rho):
-    return (fobj + torch.sum(d.gamma_s * s) + torch.sum(d.gamma_t * t)
-            + torch.sum(d.gamma_sw * sw) + torch.sum(d.gamma_tw * tw)
-            - mu * _barrier_terms(x, s, t, sw, tw, d, opts.rel_bound_barrier)
-            + rho * _infeas_l2(c, s, t, cw, sw, tw))
-
-
 def _clip(x, lo, hi):
     """jnp.clip with tensor bounds: min(max(x, lo), hi)."""
     return torch.minimum(torch.maximum(x, lo), hi)
@@ -435,50 +406,11 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                           refine_steps=opts.iterative_refinement_steps,
                           qn_compact=cq)
 
-    # -- fraction-to-boundary scaling ---------------------------------------
-    tau = torch.clamp(1.0 - mu, min=opts.min_fraction_to_boundary)
-    ax, az = kkt.max_step_lengths(v, d, p, tau)
-    mb = 100.0
-    ax = torch.where(ax > az, _clip(ax, az / mb, az * mb), ax)
-    az = torch.where(az > ax, _clip(az, ax / mb, ax * mb), az)
-    comp_new = kkt.average_complementarity(v.axpy(ax, az, p), d)
-    amin2 = torch.minimum(ax, az)
-    ceq = comp_new > 10.0 * comp
-    ax = torch.where(ceq, amin2, ax)
-    az = torch.where(ceq, amin2, az)
-    ps = p.scaled(ax, az)
-
-    # -- merit + rho update -------------------------------------------------
-    merit0 = (state.fobj + torch.sum(d.gamma_s * v.s)
-              + torch.sum(d.gamma_t * v.t) + torch.sum(d.gamma_sw * v.sw)
-              + torch.sum(d.gamma_tw * v.tw)
-              - mu * _barrier_terms(v.x, v.s, v.t, v.sw, v.tw, d, rbb))
-    pbarrier = rbb * (
-        torch.sum(torch.where(d.lb_mask > 0, ps.x / (v.x - d.lb), 0.0))
-        - torch.sum(torch.where(d.ub_mask > 0, ps.x / (d.ub - v.x), 0.0)))
-    for val, st in ((v.s, ps.s), (v.t, ps.t), (v.sw, ps.sw), (v.tw, ps.tw)):
-        if val.numel():
-            pbarrier = pbarrier + torch.sum(st / val)
-    pmerit0 = (dot(d.g, ps.x)
-               + torch.sum(d.gamma_s * ps.s) + torch.sum(d.gamma_t * ps.t)
-               + torch.sum(d.gamma_sw * ps.sw) + torch.sum(d.gamma_tw * ps.tw)
-               - mu * pbarrier)
-    infeas = _infeas_l2(d.c, v.s, v.t, d.cw, v.sw, v.tw)
-    proj = torch.zeros((), dtype=dtype, device=dev)
-    if d.ncon:
-        proj = proj + torch.sum((d.c - v.s + v.t)
-                                * (d.A @ ps.x - ps.s + ps.t))
-    if d.nwcon:
-        proj = proj + torch.sum((d.cw - v.sw + v.tw)
-                                * (d.Aw_matvec(ps.x) - ps.sw + ps.tw))
-    infeas_proj = torch.where(infeas > 0.0,
-                              proj / torch.clamp(infeas, min=1e-300), 0.0)
-    b0c, Zc, Mc = cq
-    Bpx = b0c * ps.x
-    if Zc is not None:
-        Bpx = Bpx - matmul(Zc.T,
-                           torch.linalg.solve_ex(Mc, matmul(Zc, ps.x)).result)
-    pTBp = dot(ps.x, Bpx)
+    # -- fraction-to-boundary scaling and the merit pieces -----------------
+    ps, ax, az, _ = _scale_step(v, d, p, mu, comp,
+                                opts.min_fraction_to_boundary)
+    merit0, pmerit0, infeas, infeas_proj, pTBp = _merit_parts(
+        v, d, ps, state.fobj, mu, rbb, cq, True)
 
     # ρ update (evalMeritInitDeriv tail)
     descent = opts.penalty_descent_fraction
@@ -505,25 +437,13 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
     # -- line search --------------------------------------------------------
     fprec = opts.function_precision
     dprec = opts.design_precision
-    lo_pad, hi_pad = _bound_pads(d, dprec, dtype)
-
-    def clip_x(xt):
-        xt = torch.where((d.lb_mask > 0) & (xt <= d.lb + lo_pad),
-                         d.lb + lo_pad, xt)
-        return torch.where((d.ub_mask > 0) & (xt + hi_pad >= d.ub),
-                           d.ub - hi_pad, xt)
-
-    def floor(a):
-        return torch.clamp(a, min=dprec)
 
     @record_function("paropt.line_search_trial")
     def trial(alpha):
-        xt = clip_x(v.x + alpha * ps.x)
+        xt, st, tt, swt, twt = _trial_point(v, d, ps, alpha, dprec)
         ft, ct, cwt = model.eval_obj_con(model_params, xt)
-        return _merit_fn(opts, d, xt, floor(v.s + alpha * ps.s),
-                         floor(v.t + alpha * ps.t),
-                         floor(v.sw + alpha * ps.sw),
-                         floor(v.tw + alpha * ps.tw), ft, ct, cwt, mu, rho)
+        return _merit_eval(xt, st, tt, swt, twt, ft, ct, cwt, d, mu, rbb,
+                           rho)
 
     one = torch.ones((), dtype=dtype, device=dev)
     if opts.use_line_search:
@@ -580,13 +500,7 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         neval_add = zero_i + 1
 
     # -- apply the step -----------------------------------------------------
-    vn = v.axpy(alpha, alpha, ps)
-    vn = IPVars(x=clip_x(vn.x),
-                zl=torch.where(d.lb_mask > 0, floor(vn.zl), 0.0),
-                zu=torch.where(d.ub_mask > 0, floor(vn.zu), 0.0),
-                s=floor(vn.s), t=floor(vn.t), z=vn.z, zs=floor(vn.zs),
-                zt=floor(vn.zt), sw=floor(vn.sw), tw=floor(vn.tw), zw=vn.zw,
-                zsw=floor(vn.zsw), ztw=floor(vn.ztw))
+    vn = _apply_step(v, d, ps, alpha, dprec)
 
     with record_function("paropt.eval"):
         fobj_n, c_n, cw_n = model.eval_obj_con(model_params, vn.x)

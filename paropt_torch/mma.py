@@ -1,17 +1,21 @@
-"""Method of Moving Asymptotes, the fused outer loop (counterpart of
-paropt_tpu/mma.py:41-101 and :473-899, where the method is documented).
+"""Method of Moving Asymptotes: the host-loop `MMA` and the fused outer loop
+`FusedMMA` (counterpart of paropt_tpu/mma.py, where the method is
+documented).
 
 Each outer iteration evaluates the problem, updates the asymptotes
 (contract/relax rule), the move limits, the inner bounds α/β and the p/q
 coefficients of the separable convex approximation, tests the KKT error, and
 solves the approximation with the fused interior-point solver (diagonal
-Hessian, no line search).  The JAX package runs the whole loop as one
-``lax.while_loop``; here it is a host loop over outer iterations, and the
-inner solve is skipped after one host read of ``converged`` once the loop
-has converged (JAX's ``lax.cond``).  ``FusedMMA.syncs`` counts the host
-reads, the inner solver's included.
+Hessian, no line search).  `MMA` makes these decisions on the host, as the
+JAX package's does, and is itself the subproblem `Problem`; ``MMA.syncs``
+counts its host reads.  `FusedMMA` keeps the outer iteration on the device:
+the JAX package runs the whole loop as one ``lax.while_loop``; here it is a
+host loop over outer iterations, and the inner solve is skipped after one
+host read of ``converged`` once the loop has converged (JAX's
+``lax.cond``).  ``FusedMMA.syncs`` counts the host reads, the inner
+solver's included.
 
-Not ported yet: the host-loop `MMA` class and ``solve_batched``.
+Not ported yet: ``FusedMMA.solve_batched``.
 """
 
 from __future__ import annotations
@@ -26,13 +30,17 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .ip_fused import (FusedIPOptions, HostSyncs, ModelFns, _fused_init,
+from .ip import HostSyncs, InteriorPoint
+from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
                        _fused_solve_loop)
 from .ops.kkt import ProblemData
-from .utils.options import make_options
+from .problem import Problem
+from .tr import _viol
+from .utils.logging import MMALogger
+from .utils.options import OptionRegistry, make_options
 
-__all__ = ["MMAParams", "make_mma_model", "FusedMMA", "fused_mma_solve",
-           "FusedMMAOptions", "FusedMMAState"]
+__all__ = ["MMA", "MMAParams", "make_mma_model", "FusedMMA",
+           "fused_mma_solve", "FusedMMAOptions", "FusedMMAState"]
 
 
 class MMAParams(NamedTuple):
@@ -94,6 +102,358 @@ def make_mma_model(use_true_mma: bool, has_sparse: bool) -> ModelFns:
         return h
 
     return ModelFns(eval_obj_con=ev, eval_grad=gr, hess_diag=hd)
+
+
+class MMA(Problem):
+    """MMA outer loop (`ParOptMMA`), on the device of the problem's x0; also
+    the separable subproblem, as a `Problem` over x.  Each outer iteration
+    re-linearizes about the new point, updates the asymptotes and the p/q
+    coefficients on the host's schedule, and solves the approximation with
+    a `FusedIP` (diagonal Hessian, no line search).  ``syncs`` counts the
+    host reads, the inner solves' included; ``mma_output_file`` None
+    writes no log."""
+
+    def __init__(self, problem: Problem, options: Optional[Any] = None):
+        super().__init__(nvars=problem.nvars, ncon=problem.ncon,
+                         nwcon=problem.nwcon, nwblock=problem.nwblock,
+                         ninequality=problem.ninequality,
+                         nwinequality=problem.nwinequality)
+        self.prob = problem
+        if isinstance(options, OptionRegistry):
+            self.options = options
+        else:
+            self.options = make_options(options, which="facade")
+        o = self.options
+        self.use_true_mma = not o["mma_use_constraint_linearization"]
+        self.syncs = HostSyncs()
+
+        self.x, self.lbv, self.ubv = problem.get_vars_and_bounds()
+        self.x1 = self.x
+        self.x2 = self.x
+        n = self.nvars
+        kw = dict(dtype=self.x.dtype, device=self.x.device)
+        self.L = torch.zeros(n, **kw)
+        self.U = torch.zeros(n, **kw)
+        self.alpha = torch.zeros(n, **kw)
+        self.beta = torch.zeros(n, **kw)
+        self.p0 = torch.zeros(n, **kw)
+        self.q0 = torch.zeros(n, **kw)
+        self.pi = torch.zeros((self.ncon, n), **kw)
+        self.qi = torch.zeros((self.ncon, n), **kw)
+        self.b = torch.zeros(self.ncon, **kw)
+        self.fobj = self.cons = self.cw = self.g = self.A = None
+        self.z = torch.zeros(self.ncon, **kw)
+        self.zw = torch.zeros(self.nwcon, **kw)
+        self.zl = torch.zeros(n, **kw)
+        self.zu = torch.zeros(n, **kw)
+        self.mma_iter = 0
+        self.subproblem_iter = 0
+
+        # the interior-point solver over this subproblem with the forced
+        # options (`ParOptMMA.cpp:342-344`), as in the reference's API; the
+        # outer loop's solves run the fused solver built below
+        ip_opts = self.options.copy()
+        ip_opts["use_diag_hessian"] = True
+        ip_opts["use_line_search"] = False
+        ip_opts["qn_type"] = "none"
+        ip_opts["write_output_frequency"] = 0
+        ip_opts["output_file"] = None
+        self.ip = InteriorPoint(self, ip_opts)
+        self.ip.syncs = self.syncs
+        self._logger = None
+        self._fused: Optional[FusedIP] = None
+
+    def _build_fused(self):
+        o = self.options
+        fopts = FusedIPOptions(
+            abs_res_tol=o["abs_res_tol"],
+            init_barrier_param=o["init_barrier_param"],
+            monotone_barrier_fraction=o["monotone_barrier_fraction"],
+            monotone_barrier_power=o["monotone_barrier_power"],
+            rel_bound_barrier=o["rel_bound_barrier"],
+            min_fraction_to_boundary=o["min_fraction_to_boundary"],
+            function_precision=o["function_precision"],
+            design_precision=o["design_precision"],
+            max_major_iters=o["max_major_iters"],
+            iterative_refinement_steps=o["iterative_refinement_steps"],
+            barrier_strategy=o["barrier_strategy"],
+            starting_point_strategy=o["starting_point_strategy"],
+            use_line_search=False,
+            use_diag_hessian=True,
+            norm_type=o["norm_type"])
+        model = make_mma_model(self.use_true_mma, self.nwcon > 0)
+        self._fused = FusedIP(model, self.nvars, self.ncon, self.nwcon,
+                              self.nwblock, fopts, dtype=self.ip.dtype)
+        self._fused.syncs = self.syncs
+
+    def _solve_subproblem_fused(self):
+        """One inner IP solve of the current MMA approximation."""
+        if self._fused is None:
+            self._build_fused()
+        kw = dict(dtype=self.ip.dtype, device=self.x.device)
+        n, ncon, nwcon = self.nvars, self.ncon, self.nwcon
+        if nwcon > 0:
+            Aw = self.prob.sparse_jacobian(self.x)
+            cols, vals, layout = Aw.cols, Aw.vals.to(**kw), Aw.layout
+            cwk = self.cw.to(**kw)
+        else:
+            cols = vals = None
+            cwk = torch.zeros(0, **kw)
+            layout = "gather"
+        params = MMAParams(
+            L=self.L.to(**kw), U=self.U.to(**kw), p0=self.p0.to(**kw),
+            q0=self.q0.to(**kw), pi=self.pi.to(**kw), qi=self.qi.to(**kw),
+            b=self.b.to(**kw), cons=self.cons.to(**kw), A=self.A.to(**kw),
+            x0=self.x.to(**kw), cwk=cwk, Aw_cols=cols, Aw_vals=vals)
+        gamma = self.options["penalty_gamma"]
+        ones = torch.ones(n, **kw)
+        data = ProblemData(
+            g=torch.zeros(n, **kw), A=torch.zeros((ncon, n), **kw),
+            c=torch.zeros(ncon, **kw), cw=torch.zeros(nwcon, **kw),
+            lb=self.alpha.to(**kw), ub=self.beta.to(**kw),
+            lb_mask=ones, ub_mask=ones,
+            gamma_s=torch.as_tensor(
+                np.where(np.arange(ncon) < self.ninequality, 0.0, gamma),
+                **kw),
+            gamma_t=torch.full((ncon,), gamma, **kw),
+            gamma_sw=torch.as_tensor(
+                np.where(np.arange(nwcon) < self.nwinequality, 0.0, gamma),
+                **kw),
+            gamma_tw=torch.full((nwcon,), gamma, **kw),
+            Aw_cols=cols, Aw_vals=vals, nwblock=self.nwblock,
+            Aw_layout=layout)
+        st = self._fused.solve(self.x.to(**kw), data, params)
+        self.subproblem_iter += int(self.syncs.value(st.k))
+        return st.vars.x, st.vars.z, st.vars.zw, st.vars.zl, st.vars.zu
+
+    # ------------------------------------------------------------------
+    # outer loop
+    # ------------------------------------------------------------------
+
+    def optimize(self) -> Dict[str, Any]:
+        """`ParOptMMA::optimize` (`ParOptMMA.cpp:318-379`)."""
+        o = self.options
+        infeas_tol = o["mma_infeas_tol"]
+        l1_tol = o["mma_l1_tol"]
+        linf_tol = o["mma_linfty_tol"]
+        self._logger = MMALogger(o["mma_output_file"])
+        scaling = o["mma_kkt_error_scaling"]
+        max_no_improve = o["mma_max_no_improvement"]
+
+        self.initialize_subproblem(self.x)
+        converged = stalled = False
+        infeas = l1 = linf = float("inf")
+        best_l1 = float("inf")
+        no_improve = 0
+        for _ in range(o["mma_max_iterations"]):
+            x, z, zw, zl, zu = self._solve_subproblem_fused()
+            # set multipliers + re-linearize about the new point
+            self.z, self.zw, self.zl, self.zu = z, zw, zl, zu
+            self.initialize_subproblem(x)
+            infeas, l1, linf = self.compute_kkt_error()
+            # 'gradient' scaling: relative stationarity
+            s1 = sinf = 1.0
+            if scaling == "gradient":
+                g_l1, g_inf = self.syncs.values(
+                    torch.sum(torch.abs(self.g)),
+                    torch.max(torch.abs(self.g)))
+                s1, sinf = max(1.0, g_l1), max(1.0, g_inf)
+            if infeas < infeas_tol and (l1 < l1_tol * s1
+                                        or linf < linf_tol * sinf):
+                converged = True
+                break
+            # no-improvement window (mma_max_no_improvement): stop at the
+            # arithmetic-noise stationarity floor
+            if l1 < best_l1:
+                best_l1, no_improve = l1, 0
+            else:
+                no_improve += 1
+            if (max_no_improve > 0 and no_improve >= max_no_improve
+                    and infeas < infeas_tol):
+                converged = stalled = True
+                break
+        self._logger.close()
+        return {"x": self.x, "fobj": self.syncs.value(self.fobj),
+                "converged": converged, "stalled": stalled,
+                "niter": self.mma_iter,
+                "infeas": infeas, "l1": l1, "linfty": linf}
+
+    def get_optimized_point(self):
+        return self.x
+
+    def get_asymptotes(self):
+        """-> (L, U) current moving asymptotes (`getAsymptotes`,
+        ParOpt.pyx:1383-1388)."""
+        return self.L, self.U
+
+    def get_design_history(self):
+        """-> (x1, x2), the two previous design iterates
+        (`getDesignHistory`, ParOpt.pyx:1389-1394)."""
+        return self.x1, self.x2
+
+    def initialize_subproblem(self, xv):
+        """Shift history, evaluate f/c/gradients at the new point, update
+        asymptotes and p/q coefficients (`initializeSubProblem`,
+        `ParOptMMA.cpp:523-790`)."""
+        o = self.options
+        self.x2, self.x1 = self.x1, self.x
+        self.x = xv
+
+        fobj, cons = self.prob.eval_obj_con(self.x)
+        self.fobj = fobj
+        self.cons = cons.reshape(self.ncon)
+        self.g, self.A = self.prob.eval_obj_con_gradient(self.x)
+        if self.nwcon > 0:
+            self.cw = self.prob.eval_sparse_con(self.x)
+
+        # log this outer iteration
+        if self._logger is not None:
+            infeas, l1, linf = self.compute_kkt_error()
+            fobj_f, l1_lambda = self.syncs.values(
+                self.fobj, (torch.sum(torch.abs(self.z)) if self.ncon
+                            else torch.zeros_like(self.fobj)))
+            self._logger.log(self.mma_iter, self.subproblem_iter, fobj_f,
+                             l1, linf, l1_lambda, infeas)
+
+        x = self.x
+        movlim = o["mma_move_limit"]
+        lower = torch.maximum(self.lbv, x - movlim)
+        upper = torch.minimum(self.ubv, x + movlim)
+
+        if self.mma_iter < 2:
+            off = o["mma_init_asymptote_offset"]
+            self.L = x - off * (upper - lower)
+            self.U = x + off * (upper - lower)
+        else:
+            min_off = o["mma_min_asymptote_offset"]
+            max_off = o["mma_max_asymptote_offset"]
+            indc = (x - self.x1) * (self.x1 - self.x2)
+            intrvl = torch.clamp(upper - lower, 0.01, 100.0)
+            # a tensor operand: two Python scalars would give float32
+            fac = torch.where(indc < 0.0,
+                              torch.full_like(indc,
+                                              o["mma_asymptote_contract"]),
+                              o["mma_asymptote_relax"])
+            L = x - fac * (self.x1 - self.L)
+            U = x + fac * (self.U - self.x1)
+            L = torch.minimum(L, x - min_off * intrvl)
+            U = torch.maximum(U, x + min_off * intrvl)
+            self.L = torch.maximum(L, x - max_off * intrvl)
+            self.U = torch.minimum(U, x + max_off * intrvl)
+
+        # inner bounds α/β (`ParOptMMA.cpp:700-710`)
+        self.alpha = torch.maximum(torch.maximum(lower,
+                                                 0.9 * self.L + 0.1 * x),
+                                   x - 0.5 * (upper - lower))
+        self.beta = torch.minimum(torch.minimum(upper,
+                                                0.9 * self.U + 0.1 * x),
+                                  x + 0.5 * (upper - lower))
+
+        eps = o["mma_eps_regularization"]
+        delta = o["mma_delta_regularization"]
+        gpos = torch.clamp(self.g, min=0.0)
+        gneg = torch.clamp(-self.g, min=0.0)
+        Umx = self.U - x
+        xmL = x - self.L
+        self.p0 = Umx ** 2 * ((1.0 + delta) * gpos + delta * gneg
+                              + eps / (self.U - self.L))
+        self.q0 = xmL ** 2 * ((1.0 + delta) * gneg + delta * gpos
+                              + eps / (self.U - self.L))
+
+        if self.use_true_mma and self.ncon > 0:
+            # convex approximation of -c(x) (`ParOptMMA.cpp:689-734`)
+            Apos = torch.clamp(-self.A, min=0.0)
+            Aneg = torch.clamp(self.A, min=0.0)
+            self.pi = Umx[None, :] ** 2 * Apos
+            self.qi = xmL[None, :] ** 2 * Aneg
+            bsum = torch.sum(self.pi / Umx[None, :]
+                             + self.qi / xmL[None, :], dim=1)
+            self.b = -(self.cons + bsum)
+
+        self.mma_iter += 1
+
+    def compute_kkt_error(self):
+        """(infeas, l1, linfty) (`computeKKTError`, `ParOptMMA.cpp:
+        406-488`): projected gradient of the true Lagrangian with bound
+        relaxation."""
+        relax = self.options["mma_bound_relax"]
+        x = self.x
+        r = self.g - self.A.T @ self.z if self.ncon else self.g
+        if self.nwcon > 0:
+            r = r - self.prob.sparse_jacobian_tvec(x, self.zw)
+        if relax > 0.0:
+            r = torch.where((x <= self.lbv + relax) & (r > 0.0), 0.0, r)
+            r = torch.where((x >= self.ubv - relax) & (r < 0.0), 0.0, r)
+        else:
+            r = r - self.zl + self.zu
+        zero = torch.zeros((), dtype=r.dtype, device=r.device)
+        infeas = zero
+        if self.ncon:
+            infeas = infeas + torch.sum(_viol(self.cons, self.ninequality))
+        if self.nwcon:
+            infeas = infeas + torch.sum(_viol(self.cw, self.nwinequality))
+        l1, linf, infeas = self.syncs.values(
+            torch.sum(torch.abs(r)),
+            torch.max(torch.abs(r)) if r.numel() else zero, infeas)
+        return infeas, l1, linf
+
+    # ------------------------------------------------------------------
+    # the separable subproblem, as a Problem consumed by the IP
+    # ------------------------------------------------------------------
+
+    def get_vars_and_bounds(self):
+        return self.x, self.alpha, self.beta
+
+    def eval_obj_con(self, xv):
+        """MMA approximation (`ParOptMMA::evalObjCon`, `ParOptMMA.cpp:
+        804-868`)."""
+        Uinv = 1.0 / (self.U - xv)
+        Linv = 1.0 / (xv - self.L)
+        f = torch.sum(self.p0 * Uinv + self.q0 * Linv)
+        if self.ncon == 0:
+            return f, xv.new_zeros(0)
+        if self.use_true_mma:
+            c = -(self.pi @ Uinv + self.qi @ Linv + self.b)
+        else:
+            c = self.cons + self.A @ (xv - self.x)
+        return f, c
+
+    def eval_obj_con_gradient(self, xv):
+        self.subproblem_iter += 1
+        Uinv = 1.0 / (self.U - xv)
+        Linv = 1.0 / (xv - self.L)
+        g = self.p0 * Uinv ** 2 - self.q0 * Linv ** 2
+        if self.ncon == 0:
+            return g, xv.new_zeros((0, self.nvars))
+        if self.use_true_mma:
+            A = self.qi * (Linv ** 2)[None, :] - self.pi * (Uinv ** 2)[None, :]
+        else:
+            A = self.A
+        return g, A
+
+    def eval_hessian_diag(self, xv, z, zw):
+        """`ParOptMMA::evalHessianDiag` (`ParOptMMA.cpp:967-1010`)."""
+        Uinv = 1.0 / (self.U - xv)
+        Linv = 1.0 / (xv - self.L)
+        h = 2.0 * (self.p0 * Uinv ** 3 + self.q0 * Linv ** 3)
+        if self.use_true_mma and self.ncon > 0:
+            h = h + 2.0 * (z @ (self.pi * (Uinv ** 3)[None, :]
+                                + self.qi * (Linv ** 3)[None, :]))
+        return h
+
+    def eval_hvec_product(self, xv, z, zw, px):
+        return self.eval_hessian_diag(xv, z, zw) * px
+
+    # sparse constraints: linearized about the outer point x
+    # (`ParOptMMA::evalSparseCon`, `ParOptMMA.cpp:1015-1050`)
+    def eval_sparse_con(self, xv):
+        return self.cw + self.prob.sparse_jacobian(self.x).matvec(xv - self.x)
+
+    def sparse_jacobian(self, xv):
+        return self.prob.sparse_jacobian(self.x)
+
+    def write_output(self, it, xv):
+        pass
 
 
 class FusedMMAOptions(NamedTuple):

@@ -141,3 +141,83 @@ def qn_pairs(n, count, seed=0):
         s = rng.standard_normal(n)
         pairs.append((s, 2.0 * s + 0.3 * rng.standard_normal(n)))
     return pairs
+
+
+# ---------------------------------------------------------------------------
+# the optimizers' fixed-width logs
+# ---------------------------------------------------------------------------
+
+# parser name, integer columns, the relative precision each float column is
+# printed with (one unit of its last digit), the number of parsed columns
+# before the info flags
+LOG_SPECS = {
+    "ip": ("unpack_output", ("iter", "nobj", "ngrd", "nhvc"),
+           dict(dict.fromkeys(("alpha", "alphx", "alphz", "opt", "infes",
+                               "dual", "mu", "comp", "dmerit", "rho"), 0.1),
+                fobj=1e-5), 15),
+    "tr": ("unpack_tr_output", ("iter",),
+           dict(dict.fromkeys(("infeas", "l1", "linfty", "xnorm", "tr", "rho",
+                               "smodel", "avgz", "maxz", "avgpen",
+                               "maxpen"), 0.01), fobj=1e-5), 14),
+    "mma": ("unpack_mma_output", ("iter", "subiter"),
+            dict(dict.fromkeys(("l1", "linfty", "l1lambda", "infeas"), 1e-3),
+                 fobj=1e-6), 7),
+}
+
+
+def log_info_flags(path, ncols):
+    """The info text after the parsed columns of each iteration row."""
+    out = []
+    with open(path) as fp:
+        for line in fp:
+            parts = line.split()
+            if len(parts) >= ncols and parts[0].lstrip("-").isdigit():
+                out.append(" ".join(parts[ncols:]))
+    return out
+
+
+def assert_logs_alike(jpath, tpath, kind):
+    """A log written by paropt_tpu and one written by paropt_torch parse
+    alike with both packages' parsers: the same columns and rows, equal
+    integer columns and info flags, each float column within one unit of
+    its printed precision (the wall-time column of the TR log aside)."""
+    from paropt_tpu.utils import logging as jlog
+    from paropt_torch.utils import logging as tlog
+    name, ints, rtols, ncols = LOG_SPECS[kind]
+    for mod in (jlog, tlog):
+        j, t = getattr(mod, name)(str(jpath)), getattr(mod, name)(str(tpath))
+        assert list(j) == list(t)
+        assert len(j["iter"]) == len(t["iter"]) > 0
+        for col in ints:
+            np.testing.assert_array_equal(t[col], j[col], err_msg=col)
+        for col, rtol in rtols.items():
+            scale = float(np.nanmax(np.abs(j[col]), initial=0.0))
+            np.testing.assert_allclose(t[col], j[col], rtol=rtol,
+                                       atol=1e-9 * scale, equal_nan=True,
+                                       err_msg=col)
+    assert log_info_flags(tpath, ncols) == log_info_flags(jpath, ncols)
+
+
+def assert_facade_matches(jprob, tprob, opts, algorithm):
+    """`Optimizer(problem, opts)` of both packages: the same host solver
+    class, iterations, fobj to 1e-10 relative and `get_optimized_point` to
+    1e-8 (for 'tr', the multipliers of the host IP over the quadratic
+    subproblem, which the fused inner solves leave at their start, in JAX
+    as in the port).  ``opts`` leaves ``use_fused_loop`` unset."""
+    from paropt_tpu.optimizer import Optimizer as JOptimizer
+    from paropt_torch import Optimizer
+    opts = dict(opts, output_file=None, tr_output_file=None,
+                mma_output_file=None)
+    jopt = JOptimizer(jprob, dict(opts))
+    jres = jopt.optimize()
+    opt = Optimizer(tprob, dict(opts))
+    assert opt.algorithm == algorithm
+    with pytest.raises(RuntimeError):
+        opt.get_optimized_point()
+    res = opt.optimize()
+    assert type(opt._inner).__name__ == type(jopt._inner).__name__
+    assert res["niter"] == jres["niter"]
+    assert res["fobj"] == pytest.approx(jres["fobj"], rel=1e-10)
+    for got, want in zip(opt.get_optimized_point(),
+                         jopt.get_optimized_point()):
+        assert_close(got, want, rtol=0.0, atol=1e-8)

@@ -4,7 +4,14 @@ model and state constructor given no device resolves it to ``cuda``.
 Without a card, making the first tensor there raises PyTorch's own error,
 and nothing carries on on the CPU.  Each case records what the constructor
 resolved and expects that error here (on a machine with a card the object
-is built there instead)."""
+is built there instead).
+
+The solvers make every tensor on the device of the problem's x0: one
+iteration of each host loop and each fused loop, with the problem on the
+CPU, runs under
+``torch.set_default_device("meta")``, where a tensor made without
+``device=`` lands on the meta device and mixing it with the CPU tensors
+raises."""
 
 import dataclasses
 
@@ -12,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_torch import convert, dtypes
+from paropt_torch import Optimizer, convert, dtypes
 from paropt_torch.models import analytic, fem_topology, topology
 from paropt_torch.ops import kkt, qn
 
@@ -80,3 +87,21 @@ def test_constructor_without_device_aims_at_the_card(name, monkeypatch):
             _build(make)
     assert asked and asked[0] == (None, torch.device("cuda"))
 
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("algorithm", ["ip", "tr", "mma"])
+def test_route_makes_no_tensor_off_the_problem_device(algorithm, fused):
+    prob = topology.SyntheticTopology(n=64, block=8, dtype=torch.float64,
+                                      device="cpu")
+    opts = {"algorithm": algorithm, "use_fused_loop": fused,
+            "output_file": None,
+            "tr_output_file": None, "mma_output_file": None,
+            "max_major_iters": 1, "tr_max_iterations": 1,
+            "mma_max_iterations": 1}
+    torch.set_default_device("meta")
+    try:
+        res = Optimizer(prob, opts).optimize()
+    finally:
+        torch.set_default_device(None)
+    assert res["x"].device.type == "cpu"

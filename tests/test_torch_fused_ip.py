@@ -284,7 +284,8 @@ def test_import_loads_no_jax():
             "paropt_torch.models.topology, paropt_torch.mma, "
             "paropt_torch.optimizer, paropt_torch.tr, "
             "paropt_torch.models.fem_topology, paropt_torch.models.analytic, "
-            "paropt_torch.utils.options, "
+            "paropt_torch.utils.options, paropt_torch.ip, "
+            "paropt_torch.problem, paropt_torch.utils.logging, "
             "paropt_torch.utils.chunked; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'paropt_tpu')));"

@@ -8,9 +8,12 @@ with a card and no jax it runs without the JAX conftest:
 Tolerances: f64 1e-12 relative (exposes indexing faults); f32 and bf16
 storage (f32 accumulation) 1e-5, the reordering of the sums."""
 
+import dataclasses
+
 import pytest
 import torch
 
+from paropt_torch import Optimizer
 from paropt_torch.models.topology import SyntheticTopology
 from paropt_torch.ops import kernels
 from paropt_torch.tr import FusedTR
@@ -137,3 +140,50 @@ def test_cuda_fused_tr_launches_every_kernel_and_matches_host(cuda):
     assert not any(lh.values())
     assert (rc["niter"], rc["subiters"]) == (rh["niter"], rh["subiters"])
     assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])
+
+
+def _tensors(obj, seen=None):
+    """Every tensor reachable from a solver object's attributes (tensors,
+    dataclass states, dicts, lists and tuples, nested solver objects)."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name), seen)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v, seen)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v, seen)
+    elif type(obj).__module__.startswith("paropt_torch"):
+        for v in vars(obj).values():
+            yield from _tensors(v, seen)
+
+
+@pytest.mark.parametrize("algorithm", ["ip", "tr", "mma"])
+def test_cuda_host_routes_keep_state_on_the_card(cuda, algorithm):
+    """The facade's host loops on SyntheticTopology(4096) in float64 on the
+    card: every tensor the solver holds is a CUDA tensor, and the kernels
+    launch (all three on the IP and TR paths; the quasi-definite apply in
+    the MMA's inner solves on this blocked_t problem)."""
+    prob = SyntheticTopology(n=4096, block=8, dtype=torch.float64,
+                             device=cuda)
+    opt = Optimizer(prob, {"algorithm": algorithm, "output_file": None,
+                           "tr_output_file": None, "mma_output_file": None,
+                           "max_major_iters": 30, "tr_max_iterations": 3,
+                           "mma_max_iterations": 3})
+    kernels.reset_launches()
+    res = opt.optimize()
+    assert res["x"].is_cuda and torch.isfinite(res["x"]).all()
+    held = list(_tensors(opt._inner))
+    assert held and all(t.is_cuda for t in held), \
+        [t.device for t in held if not t.is_cuda]
+    if algorithm == "mma":
+        assert kernels.LAUNCHES["quasi_def_apply"] > 0
+    else:
+        assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES

@@ -10,7 +10,10 @@ paropt_torch.utils.options against paropt_tpu's.
   fused 'tr' route takes JAX's `FusedTR` iterations on the 8x4 FEM
   (tests/test_drivers.py's case), fobj to 1e-10, and, as in JAX, has no
   multipliers for `get_optimized_point`.
-- Every route not ported yet raises NotImplementedError.
+- The host routes, the facade's default (``use_fused_loop`` unset), are
+  held against paropt_tpu.Optimizer beside each host solver's parity tests
+  (tests/test_torch_ip.py, test_torch_tr_host.py, test_torch_mma_host.py),
+  where the JAX package's compiled steps are already warm.
 """
 
 import json
@@ -30,7 +33,6 @@ from paropt_torch.models.fem_topology import FEMTopology as TFEM
 from paropt_torch.models.topology import SyntheticTopology as TTopology
 from paropt_torch.utils import options as toptions
 from paropt_torch.utils.chunked import make_write_output_hook
-
 torch.set_num_threads(1)
 
 F64 = torch.float64
@@ -154,17 +156,6 @@ def test_tr_route_matches_jax_fused_tr():
     with pytest.raises(RuntimeError, match="FusedTR"):
         jopt.get_optimized_point()
     with pytest.raises(RuntimeError, match="FusedTR"):
-        opt.get_optimized_point()
-
-
-@pytest.mark.parametrize("algorithm,fused", [
-    ("tr", False), ("ip", False), ("mma", False)])
-def test_unported_routes_raise(algorithm, fused):
-    opt = Optimizer(TTopology(n=64, block=8, dtype=F64, device="cpu"),
-                    {"algorithm": algorithm, "use_fused_loop": fused})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        opt.optimize()
-    with pytest.raises(RuntimeError):
         opt.get_optimized_point()
 
 
