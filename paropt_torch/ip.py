@@ -263,21 +263,6 @@ def _merit_parts(v: IPVars, d: ProblemData, p: IPVars, fobj, mu,
     return merit0, pmerit0, infeas, infeas_proj, pTBp
 
 
-def _step_scale_merit(v: IPVars, d: ProblemData, compact, fobj, mu, comp,
-                      rel_bound_barrier, qn_sigma, tau_min,
-                      refine_steps: int, use_qn: bool, norm_type: str):
-    """The iteration head: KKT step, fraction-to-boundary scaling and merit
-    parts.  JAX fuses the three into one compiled program (a matter of
-    speed there); here it runs the same three functions in turn, so the
-    fused and the separate branches give the same numbers."""
-    p = _compute_step(v, d, compact, mu, rel_bound_barrier, qn_sigma,
-                      refine_steps, use_qn)
-    ps, ax, az, ceq = _scale_step(v, d, p, mu, comp, tau_min)
-    mp = _merit_parts(v, d, ps, fobj, mu, rel_bound_barrier, compact, use_qn)
-    px_norm = multi_norm([p.x], norm_type)   # unscaled (abs_step_tol test)
-    return ps, ax, az, ceq, mp, px_norm
-
-
 def _nk_projections(v: IPVars, d: ProblemData, b: IPVars, p: IPVars, mu,
                     rel_bound_barrier):
     """Newton-Krylov descent-gate projections (paropt_tpu/ip.py:262-298):
@@ -1232,24 +1217,7 @@ class InteriorPoint:
                 use_qn = use_qn_default
             sv_freq = o["step_verification_frequency"]
             sv_check_iter = sv_freq > 0 and k % sv_freq == 0
-            # the iteration head as one function (JAX's fused program) on
-            # the monotone / complementarity-fraction line-search path
-            fuse_head = (use_line_search and not sv_check_iter
-                         and barrier_strategy in ("monotone",
-                                                  "complementarity_fraction"))
-            mp = None
-            if fuse_head:
-                p = None
-                p_s, axj, azj, ceq, mp_t, pxn = _step_scale_merit(
-                    self.vars, d, compact, self.fobj, mu_j, comp_j, rbb,
-                    o["qn_sigma"], o["min_fraction_to_boundary"],
-                    refine_steps, use_qn, norm_type)
-                head = read(axj, azj, ceq.to(axj.dtype), *mp_t, pxn)
-                ax, az, ceq_b, mp = head[0], head[1], head[2] != 0, head[3:8]
-                res_norm_prev = max(res_norm, 1e-30)
-                if abs_step_tol > 0.0:
-                    step_norm_prev = head[8]
-            elif barrier_strategy in mpc_family:
+            if barrier_strategy in mpc_family:
                 # affine probe: step toward μ = 0 from the same
                 # factorization
                 p_aff = step(compact, use_qn, self._scalar(0.0), refine=0)
@@ -1272,23 +1240,25 @@ class InteriorPoint:
             else:
                 p = step(compact, use_qn, mu_j)
 
-            if not fuse_head:
-                res_norm_prev = max(res_norm, 1e-30)
-                if abs_step_tol > 0.0:
-                    step_norm_prev = self.syncs.value(norm(p.x, norm_type))
+            res_norm_prev = max(res_norm, 1e-30)
+            if sv_check_iter and barrier_strategy not in mpc_family:
+                err = self.syncs.value(_check_kkt_step(
+                    self.vars, d, p, compact, mu_j, rbb, o["qn_sigma"],
+                    use_qn))
+                self._logger.write(
+                    f"KKT step check: max |K*p + r| = {err:.6e}\n")
 
-                if sv_check_iter and barrier_strategy not in mpc_family:
-                    err = self.syncs.value(_check_kkt_step(
-                        self.vars, d, p, compact, mu_j, rbb, o["qn_sigma"],
-                        use_qn))
-                    self._logger.write(
-                        f"KKT step check: max |K*p + r| = {err:.6e}\n")
-
-                # fraction-to-boundary scaling (equal steps: Newton steps)
-                p_s, axj, azj, ceq = _scale_step(
-                    self.vars, d, p, mu_j, comp_j,
-                    o["min_fraction_to_boundary"])
-                ax, az, ceq_b = read(axj, azj, ceq.to(axj.dtype))
+            # fraction-to-boundary scaling (equal steps: Newton steps) and
+            # the merit parts, read with the unscaled step norm in one go
+            p_s, axj, azj, ceq = _scale_step(
+                self.vars, d, p, mu_j, comp_j, o["min_fraction_to_boundary"])
+            mp_t = _merit_parts(self.vars, d, p_s, self.fobj, mu_j, rbb,
+                                compact, use_qn)
+            pxn = [norm(p.x, norm_type)] if abs_step_tol > 0.0 else []
+            head = read(axj, azj, ceq.to(axj.dtype), *mp_t, *pxn)
+            ax, az, ceq_b, mp = head[0], head[1], head[2] != 0, head[3:8]
+            if abs_step_tol > 0.0:
+                step_norm_prev = head[8]
             if ceq_b:
                 info += "cmpEq "
 
@@ -1297,9 +1267,6 @@ class InteriorPoint:
             no_merit_improvement = False
 
             if use_line_search:
-                if mp is None:
-                    mp = read(*_merit_parts(self.vars, d, p_s, self.fobj,
-                                            mu_j, rbb, compact, use_qn))
                 m0, dm0 = self._rho_update(*mp, ax)
                 dm0_prev = dm0
                 # FD-verify the merit derivative along the ACTUAL step
@@ -1373,8 +1340,6 @@ class InteriorPoint:
                         if line_fail & LS_MAX_ITERS:
                             info += "LMxItr "
             else:
-                mp = read(*_merit_parts(self.vars, d, p_s, self.fobj, mu_j,
-                                        rbb, compact, use_qn))
                 m0, dm0 = self._rho_update(*mp, ax)
                 dm0_prev = dm0
                 ok, skipped, damped = self._accept_step(d, 1.0, p_s, None)

@@ -198,19 +198,78 @@ def assert_logs_alike(jpath, tpath, kind):
     assert log_info_flags(tpath, ncols) == log_info_flags(jpath, ncols)
 
 
-def assert_facade_matches(jprob, tprob, opts, algorithm):
+def ip_side_by_side(jprob, tprob, opts, tmp_path, setup=None):
+    """Both packages' host InteriorPoint on the same problem and options,
+    writing their logs to ``tmp_path / "j"`` and ``tmp_path / "t"``;
+    returns (jax result, torch result, jax solver, torch solver).
+    ``setup(solver, package)`` adjusts a solver before the solve."""
+    from paropt_tpu import ip as jip
+    from paropt_torch import ip as tip
+    js = jip.InteriorPoint(jprob, dict(opts, output_file=str(tmp_path / "j")))
+    ts = tip.InteriorPoint(tprob, dict(opts, output_file=str(tmp_path / "t")))
+    if setup is not None:
+        setup(js, "jax")
+        setup(ts, "torch")
+    return js.optimize(), ts.optimize(), js, ts
+
+
+def assert_same_ip_solve(jr, tr, tmp_path, x_tol=1e-8):
+    """The same iteration and evaluation counts, reason and outcome, fobj
+    to 1e-10 relative, x to ``x_tol`` and logs that parse alike."""
+    assert (tr["niter"], tr["neval"], tr["ngeval"], tr["reason"],
+            tr["converged"]) == (jr["niter"], jr["neval"], jr["ngeval"],
+                                 jr["reason"], jr["converged"])
+    # absolute 1e-14 for the solves that end at fobj = 0 (roundoff there)
+    assert tr["fobj"] == pytest.approx(jr["fobj"], rel=1e-10, abs=1e-14)
+    assert_close(tr["x"], jr["x"], rtol=0.0, atol=x_tol, name="x")
+    assert_logs_alike(tmp_path / "j", tmp_path / "t", "ip")
+
+
+def tr_side_by_side(jprob, tprob, opts, tmp_path, jsub=None, tsub=None):
+    """Both packages' host TrustRegion on the same problem and options
+    (``jsub``/``tsub``: custom subproblems), writing their logs to
+    ``tmp_path / "j"`` and ``tmp_path / "t"``; returns (jax result, torch
+    result, jax solver, torch solver)."""
+    from paropt_tpu import tr as jtr
+    from paropt_torch import tr as ttr
+    js = jtr.TrustRegion(jprob, dict(opts, tr_output_file=str(tmp_path / "j")),
+                         subproblem=jsub)
+    ts = ttr.TrustRegion(tprob, dict(opts, tr_output_file=str(tmp_path / "t")),
+                         subproblem=tsub)
+    return js.optimize(), ts.optimize(), js, ts
+
+
+def assert_same_tr_solve(jr, tr, tmp_path):
+    """The same outer iterations and outcome, fobj to 1e-10 relative, x to
+    1e-8, the KKT measures to 1e-6 and logs that parse alike."""
+    assert (tr["niter"], tr["converged"]) == (jr["niter"], jr["converged"])
+    assert tr["fobj"] == pytest.approx(jr["fobj"], rel=1e-10)
+    assert_close(tr["x"], jr["x"], rtol=0.0, atol=1e-8, name="x")
+    for key in ("infeas", "l1", "linfty"):
+        assert tr[key] == pytest.approx(jr[key], rel=1e-6, abs=1e-12), key
+    assert_logs_alike(tmp_path / "j", tmp_path / "t", "tr")
+
+
+def assert_facade_matches(jprob, tprob, opts, algorithm, log_dir=None):
     """`Optimizer(problem, opts)` of both packages: the same host solver
     class, iterations, fobj to 1e-10 relative and `get_optimized_point` to
     1e-8 (for 'tr', the multipliers of the host IP over the quadratic
     subproblem, which the fused inner solves leave at their start, in JAX
-    as in the port).  ``opts`` leaves ``use_fused_loop`` unset."""
+    as in the port).  ``opts`` leaves ``use_fused_loop`` unset.  With
+    ``log_dir`` each package writes its solver's log there, and x and the
+    logs are held alike too."""
     from paropt_tpu.optimizer import Optimizer as JOptimizer
     from paropt_torch import Optimizer
     opts = dict(opts, output_file=None, tr_output_file=None,
                 mma_output_file=None)
-    jopt = JOptimizer(jprob, dict(opts))
+    jopts, topts = dict(opts), dict(opts)
+    if log_dir is not None:
+        key = {"ip": "output_file", "tr": "tr_output_file",
+               "mma": "mma_output_file"}[algorithm]
+        jopts[key], topts[key] = str(log_dir / "j"), str(log_dir / "t")
+    jopt = JOptimizer(jprob, jopts)
     jres = jopt.optimize()
-    opt = Optimizer(tprob, dict(opts))
+    opt = Optimizer(tprob, topts)
     assert opt.algorithm == algorithm
     with pytest.raises(RuntimeError):
         opt.get_optimized_point()
@@ -221,3 +280,7 @@ def assert_facade_matches(jprob, tprob, opts, algorithm):
     for got, want in zip(opt.get_optimized_point(),
                          jopt.get_optimized_point()):
         assert_close(got, want, rtol=0.0, atol=1e-8)
+    if log_dir is not None:
+        assert_close(res["x"], jres["x"], rtol=0.0, atol=1e-8, name="x")
+        assert_logs_alike(log_dir / "j", log_dir / "t", algorithm)
+    return jopt, opt

@@ -2,9 +2,9 @@
 paropt_tpu.ip on the same problems and the same numpy inputs, in float64.
 
 - Whole solves of both packages' `InteriorPoint` under each barrier strategy
-  and both starting points, the separate iteration head
-  (``step_verification_frequency`` turns the fusion off) beside the
-  port's fused one, the
+  and both starting points, against both of JAX's iteration heads (the
+  fused one and the separate phases that ``step_verification_frequency``
+  selects), the
   DQN -> SLP -> LFail ladder (an indefinite Hessian approximation;
   wrong-sign gradients for the line-search failure and QN reset flags),
   evaluation failures during the line search (with the write-output
@@ -16,8 +16,9 @@ paropt_tpu.ip on the same problems and the same numpy inputs, in float64.
 - `Optimizer(problem, {"algorithm": "ip"})` runs the host InteriorPoint,
   held against paropt_tpu.Optimizer.
 
-tests/test_torch_ip_checks.py holds the iteration phases, the derivative
-checks, the step from a JAX state and the unported pieces.
+tests/test_torch_ip_checks.py holds the sparse-constraint solves, the
+iteration phases, the derivative checks, the step from a JAX state and the
+unported pieces.
 """
 
 import warnings
@@ -27,42 +28,17 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_tpu import ip as jip
 from paropt_tpu.models import analytic as ja
 from paropt_tpu.problem import Problem as JProblem
-from paropt_torch import ip as tip
 from paropt_torch.models import analytic as ta
 from paropt_torch.problem import Problem as TProblem
 
-from ._torch_parity import (assert_close, assert_facade_matches,
-                            assert_logs_alike)
+from ._torch_parity import (assert_facade_matches, assert_same_ip_solve,
+                            ip_side_by_side)
 
 torch.set_num_threads(1)
 
 F64 = torch.float64
-
-
-def _side_by_side(jprob, tprob, opts, tmp_path, setup=None):
-    """Both packages' InteriorPoint on the same problem and options, each
-    writing its log; returns (jax result, torch result, jax solver, torch
-    solver).  ``setup(solver, package)`` adjusts a solver before the
-    solve."""
-    js = jip.InteriorPoint(jprob, dict(opts, output_file=str(tmp_path / "j")))
-    ts = tip.InteriorPoint(tprob, dict(opts, output_file=str(tmp_path / "t")))
-    if setup is not None:
-        setup(js, "jax")
-        setup(ts, "torch")
-    return js.optimize(), ts.optimize(), js, ts
-
-
-def _assert_same_solve(jr, tr, tmp_path, x_tol=1e-8):
-    assert (tr["niter"], tr["neval"], tr["ngeval"], tr["reason"],
-            tr["converged"]) == (jr["niter"], jr["neval"], jr["ngeval"],
-                                 jr["reason"], jr["converged"])
-    # absolute 1e-14 for the solves that end at fobj = 0 (roundoff there)
-    assert tr["fobj"] == pytest.approx(jr["fobj"], rel=1e-10, abs=1e-14)
-    assert_close(tr["x"], jr["x"], rtol=0.0, atol=x_tol, name="x")
-    assert_logs_alike(tmp_path / "j", tmp_path / "t", "ip")
 
 
 def _rosen():
@@ -78,24 +54,21 @@ def _rosen():
 ])
 def test_barrier_and_start_strategies_match(barrier, start, iters, tmp_path):
     """Rosenbrock: the monotone solve to convergence, the other strategies
-    for their first 12 iterations.  The monotone case runs with step
-    verification on, which takes the iteration head as separate phases in
-    both packages (and logs the KKT step check); the port's default, the
-    head as one function, gives the same solve."""
+    for their first 12 iterations.  The port has one iteration head; JAX
+    runs two, which must agree: the monotone case runs with step
+    verification on, which takes JAX's separate head (and logs the KKT
+    step check), while the complementarity-fraction and least-squares
+    cases take its fused head (``_step_scale_merit``)."""
     opts = {"barrier_strategy": barrier, "starting_point_strategy": start,
             "abs_res_tol": 1e-7, "max_major_iters": iters}
     converge = iters == 60
     if converge:
-        fused = tip.InteriorPoint(_rosen()[1], dict(opts, output_file=None))
-        rf = fused.optimize()
         opts["step_verification_frequency"] = 1
-    jr, tr, _, ts = _side_by_side(*_rosen(), opts, tmp_path)
-    _assert_same_solve(jr, tr, tmp_path)
+    jr, tr, _, ts = ip_side_by_side(*_rosen(), opts, tmp_path)
+    assert_same_ip_solve(jr, tr, tmp_path)
     assert tr["converged"] == converge
     assert ts.syncs.count > 0
     if converge:
-        assert (rf["niter"], rf["reason"]) == (tr["niter"], tr["reason"])
-        assert_close(rf["x"], tr["x"], rtol=0.0, atol=1e-13)
         assert "KKT step check" in (tmp_path / "t").read_text()
 
 
@@ -162,8 +135,8 @@ def test_recovery_ladder_matches(case, flags, tmp_path):
             solver.set_quasi_newton_holder(
                 {"state": _JIndefinite() if package == "jax"
                  else _TIndefinite()})
-    jr, tr, _, _ = _side_by_side(*probs, opts, tmp_path, setup)
-    _assert_same_solve(jr, tr, tmp_path)
+    jr, tr, _, _ = ip_side_by_side(*probs, opts, tmp_path, setup)
+    assert_same_ip_solve(jr, tr, tmp_path)
     text = (tmp_path / "t").read_text()
     assert all(flag in text for flag in flags), text
 
@@ -215,12 +188,12 @@ def test_evaluation_failure_recovery_matches(mode, tmp_path):
     jprob, tprob = _JFragile(mode), _TFragile(mode)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
-        jr, tr, _, _ = _side_by_side(jprob, tprob, {"max_major_iters": 20,
+        jr, tr, _, _ = ip_side_by_side(jprob, tprob, {"max_major_iters": 20,
                                                     "write_output_frequency":
                                                     6}, tmp_path)
     assert tprob.nfail == jprob.nfail > 0
     assert tprob.written == jprob.written == [0, 6, 12, 18]
-    _assert_same_solve(jr, tr, tmp_path)
+    assert_same_ip_solve(jr, tr, tmp_path)
 
 
 class _JDiag(JProblem):
@@ -265,12 +238,12 @@ class _TDiag(TProblem):
 def test_diag_hessian_matches(tmp_path):
     """``use_diag_hessian`` without the line search: the MMA subproblem's
     settings."""
-    jr, tr, _, _ = _side_by_side(
+    jr, tr, _, _ = ip_side_by_side(
         _JDiag(), _TDiag(), {"use_diag_hessian": True, "qn_type": "none",
                              "use_line_search": False, "abs_res_tol": 1e-8,
                              "max_major_iters": 100}, tmp_path)
     assert tr["converged"]
-    _assert_same_solve(jr, tr, tmp_path)
+    assert_same_ip_solve(jr, tr, tmp_path)
 
 
 def test_facade_ip_route_matches():

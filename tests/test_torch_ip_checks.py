@@ -1,6 +1,12 @@
-"""The host-loop interior-point method's checks and pieces: paropt_torch.ip
-against paropt_tpu.ip on the same numpy inputs, in float64.
+"""The host-loop interior-point method on sparse constraints, its checks and
+pieces: paropt_torch.ip against paropt_tpu.ip on the same numpy inputs, in
+float64.
 
+- Solves on SyntheticTopology(256) (one dense and 32 blocked_t sparse
+  constraints) with the L-BFGS compact term, from the affine and the
+  least-squares start, the latter with sparse equalities and
+  per-constraint penalties: the same iteration count, fobj to 1e-10
+  relative, x to 1e-8, logs that parse alike.
 - The numerical phases of an iteration (`_residual_and_norms` ...
   `_trial_point`, `_nk_projections`) on the same random KKT state to 1e-12.
 - `check_gradients` (central differences with the Hessian-vector and sparse
@@ -21,6 +27,7 @@ import torch
 
 from paropt_tpu import ip as jip
 from paropt_tpu.models import analytic as ja
+from paropt_tpu.models.topology import SyntheticTopology as JTopology
 from paropt_tpu.ops import kkt as jkkt
 from paropt_torch import convert
 from paropt_torch import ip as tip
@@ -28,7 +35,8 @@ from paropt_torch.models import analytic as ta
 from paropt_torch.models.topology import SyntheticTopology as TTopology
 from paropt_torch.problem import CSRSparseProblem
 
-from ._torch_parity import (assert_close, assert_logs_alike, fields_of,
+from ._torch_parity import (assert_close, assert_logs_alike,
+                            assert_same_ip_solve, fields_of, ip_side_by_side,
                             kkt_case, np_of)
 
 torch.set_num_threads(1)
@@ -115,9 +123,46 @@ def jax_leaves(obj):
     return [obj]
 
 
+@pytest.mark.parametrize("start", ["affine_step", "least_squares_multipliers"])
+def test_sparse_constraints_match(start, tmp_path):
+    """The sparse path of the host loop: the blocked_t Jacobian in the
+    problem data, the affine start with nwcon > 0, and the least-squares
+    start's Cw Cholesky branch.  In the least-squares case the last 16
+    sparse constraints are equalities (``nwinequality`` 16) and
+    `set_penalty_gamma` sets per-constraint dense and sparse penalties, so
+    gamma_sw is zero on the inequalities only.  15 iterations; the problem
+    does not converge at this size in 80."""
+    equalities = start == "least_squares_multipliers"
+    jprob = JTopology(n=256, block=8)
+    tprob = TTopology(n=256, block=8, dtype=F64, device="cpu")
+    if equalities:
+        jprob.nwinequality = tprob.nwinequality = 16
+
+    def setup(solver, package):
+        if equalities:
+            solver.set_penalty_gamma(np.array([7.0]),
+                                     np.linspace(5.0, 20.0, 32))
+
+    opts = {"starting_point_strategy": start, "qn_subspace_size": 10,
+            "abs_res_tol": 1e-6, "max_major_iters": 15}
+    jr, tr, js, ts = ip_side_by_side(jprob, tprob, opts, tmp_path, setup)
+    assert_same_ip_solve(jr, tr, tmp_path)
+    assert tr["niter"] == 14
+    for name in ("gamma_s", "gamma_t", "gamma_sw", "gamma_tw"):
+        assert_close(getattr(ts, name), getattr(js, name), rtol=0.0,
+                     name=name)
+    assert int(torch.count_nonzero(ts.gamma_sw)) == (16 if equalities else 0)
+    assert ts.qn is not None and ts.qn.buf.shape == (20, 256)
+
+
 def test_check_gradients_matches():
     """Central differences with the Hessian-vector and sparse checks, and
-    the complex step: the same checks, each small, in both packages."""
+    the complex step: the same checks in both packages, each small, and
+    each package's error beside the other's.  The complex-step errors and
+    the exact checks (repeatability, adjoint, inner product) agree to
+    roundoff; a central-difference error, itself roundoff of the
+    difference quotient, within a factor of 2."""
+    exact = {"hvec_repeat", "sparse_adjoint", "sparse_inner_product"}
     for jprob, tprob, mode, keys, tol in (
             (ja.SparseRosenbrock(),
              ta.SparseRosenbrock(dtype=F64, device="cpu"), "central",
@@ -133,6 +178,10 @@ def test_check_gradients_matches():
         assert list(tout) == list(jout) == keys
         for key, val in tout.items():
             assert val < tol and jout[key] < tol, (key, val, jout[key])
+            if mode == "complex" or key in exact:
+                assert val == pytest.approx(jout[key], rel=1e-6, abs=1e-15)
+            else:
+                assert val == pytest.approx(jout[key], rel=0.5, abs=1e-15)
 
 
 def test_check_merit_func_gradient_matches(tmp_path):

@@ -66,26 +66,23 @@ def test_mma_matches(linearized, tmp_path):
 
 
 def test_one_outer_iteration_from_jax_state():
-    """Two outer iterations of the JAX solve, then one more of each
-    package from that state (`convert.load_mma`): the iterates, asymptotes
-    and multipliers to 1e-12."""
+    """Two outer iterations of the JAX solve, then one more of the same JAX
+    solver and one of the port's loaded from its state (`convert.load_mma`):
+    the iterates, asymptotes and multipliers to 1e-12."""
     opts = {"output_file": None, "mma_max_iterations": 2}
-    jm, _ = _pair(opts)
+    jm, tm = _pair(opts)
     jm.optimize()
     names = ("x", "x1", "x2", "L", "U", "z", "zw", "zl", "zu")
     state = {k: np.asarray(getattr(jm, k)) for k in names}
     state.update(mma_iter=jm.mma_iter, subproblem_iter=jm.subproblem_iter)
-    jn, tn = _pair(dict(opts, mma_max_iterations=1))
+    convert.load_mma(tm, state)
+    assert tm.mma_iter == jm.mma_iter
+    jm.options["mma_max_iterations"] = tm.options["mma_max_iterations"] = 1
+    jm.optimize()
+    tm.optimize()
+    assert tm.subproblem_iter == jm.subproblem_iter
     for k in names:
-        setattr(jn, k, getattr(jm, k))
-    jn.mma_iter, jn.subproblem_iter = jm.mma_iter, jm.subproblem_iter
-    convert.load_mma(tn, state)
-    assert tn.mma_iter == jm.mma_iter
-    jn.optimize()
-    tn.optimize()
-    assert tn.subproblem_iter == jn.subproblem_iter
-    for k in names:
-        assert_close(getattr(tn, k), getattr(jn, k), rtol=1e-12, atol=1e-13,
+        assert_close(getattr(tm, k), getattr(jm, k), rtol=1e-12, atol=1e-13,
                      name=k)
 
 

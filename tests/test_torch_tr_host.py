@@ -3,20 +3,15 @@ paropt_tpu.tr.TrustRegion on the same problems, in float64.
 
 - SL1QP with the adaptive per-constraint penalties (Rosenbrock, 4 outer
   iterations) and with fixed penalties (4); the filter method with
-  second-order correction (Maratos, to convergence); the custom-subproblem
-  route, whose solves run the host `InteriorPoint` (2): the same outer
+  second-order correction (Maratos, to convergence): the same outer
   iterations, fobj to 1e-10 relative, x to 1e-8, logs that parse alike
   (the actual/predicted reduction blocks of ``output_level`` 1 included).
-  Every case has two variables and one dense constraint, so the JAX
-  package compiles its inner solves once for the file.
 - One outer iteration of each package from the same mid-solve JAX state
   loaded through `convert.load_trust_region`.
-- `Optimizer(problem)` with the registry's defaults runs the host
-  TrustRegion, held against paropt_tpu.Optimizer.
-- On SyntheticTopology(256) (the sparse blocked_t constraints), the host
-  loop takes the port's `FusedTR` iterates, as paropt_tpu's does
-  (tests/test_tr.py::test_fused_tr_matches_host_loop).
-"""
+
+tests/test_torch_tr_routes.py holds the facade's default route on sparse
+constraints, the custom-subproblem route and the host loop against
+`FusedTR`."""
 
 import numpy as np
 import pytest
@@ -28,11 +23,10 @@ from paropt_tpu.utils import logging as jlog
 from paropt_torch import convert
 from paropt_torch import tr as ttr
 from paropt_torch.models import analytic as ta
-from paropt_torch.models.topology import SyntheticTopology as TTopology
 from paropt_torch.utils import logging as tlog
 
-from ._torch_parity import (assert_close, assert_facade_matches,
-                            assert_logs_alike, fields_of)
+from ._torch_parity import (assert_close, assert_same_tr_solve, fields_of,
+                            tr_side_by_side)
 
 torch.set_num_threads(1)
 
@@ -43,30 +37,13 @@ def _rosen():
     return ja.Rosenbrock(), ta.Rosenbrock(dtype=F64, device="cpu")
 
 
-def _side_by_side(jprob, tprob, opts, tmp_path, jsub=None, tsub=None):
-    js = jtr.TrustRegion(jprob, dict(opts, tr_output_file=str(tmp_path / "j")),
-                         subproblem=jsub)
-    ts = ttr.TrustRegion(tprob, dict(opts, tr_output_file=str(tmp_path / "t")),
-                         subproblem=tsub)
-    return js.optimize(), ts.optimize(), js, ts
-
-
-def _assert_same_solve(jr, tr, tmp_path):
-    assert (tr["niter"], tr["converged"]) == (jr["niter"], jr["converged"])
-    assert tr["fobj"] == pytest.approx(jr["fobj"], rel=1e-10)
-    assert_close(tr["x"], jr["x"], rtol=0.0, atol=1e-8, name="x")
-    for key in ("infeas", "l1", "linfty"):
-        assert tr[key] == pytest.approx(jr[key], rel=1e-6, abs=1e-12), key
-    assert_logs_alike(tmp_path / "j", tmp_path / "t", "tr")
-
-
 @pytest.mark.parametrize("case", ["adaptive", "fixed"])
 def test_sl1qp_matches(case, tmp_path):
     opts = {"output_file": None, "tr_max_iterations": 4,
             "tr_adaptive_gamma_update": case == "adaptive",
             "output_level": int(case == "adaptive")}
-    jr, tr, _, ts = _side_by_side(*_rosen(), opts, tmp_path)
-    _assert_same_solve(jr, tr, tmp_path)
+    jr, tr, _, ts = tr_side_by_side(*_rosen(), opts, tmp_path)
+    assert_same_tr_solve(jr, tr, tmp_path)
     assert ts.inner_iters > 0 and ts.syncs.count > 0
     if case == "adaptive":
         for mod in (jlog, tlog):
@@ -87,81 +64,41 @@ def test_filter_with_soc_matches(tmp_path):
             "penalty_gamma": 100.0, "abs_res_tol": 1e-8,
             "tr_max_iterations": 40, "tr_infeas_tol": 1e-6,
             "tr_l1_tol": 1e-5, "tr_linfty_tol": 1e-5}
-    jr, tr, js, ts = _side_by_side(ja.Maratos(),
+    jr, tr, js, ts = tr_side_by_side(ja.Maratos(),
                                    ta.Maratos(dtype=F64, device="cpu"), opts,
                                    tmp_path)
     assert tr["converged"]
-    _assert_same_solve(jr, tr, tmp_path)
+    assert_same_tr_solve(jr, tr, tmp_path)
     np.testing.assert_allclose(np.asarray(ts.filter), np.asarray(js.filter),
                                rtol=1e-10)
 
 
-def test_custom_subproblem_route(tmp_path):
-    """A subproblem given to the constructor: the QP and steering solves
-    run the host InteriorPoint on it."""
-    from paropt_tpu.ops import qn as jqn
-    from paropt_torch.ops import qn as tqn
-    jprob, tprob = _rosen()
-    jsub = jtr.QuadraticSubproblem(jprob, {"state": jqn.qn_init(4, 2)})
-    tsub = ttr.QuadraticSubproblem(tprob, {"state": tqn.qn_init(
-        4, 2, dtype=F64, device="cpu")})
-    opts = {"output_file": None, "tr_max_iterations": 2,
-            "max_major_iters": 15}
-    jr, tr, js, ts = _side_by_side(jprob, tprob, opts, tmp_path, jsub, tsub)
-    _assert_same_solve(jr, tr, tmp_path)
-    assert ts.ip.niter == js.ip.niter > 0
-    assert ts._fused_qp is None
-
-
 def test_one_outer_iteration_from_jax_state():
-    """Two outer iterations of the JAX solve, then one more of each
-    package from that state (`convert.load_trust_region`): xk, the radius,
-    the penalties and the QN state to 1e-12."""
+    """Two outer iterations of the JAX solve, then one more of the same JAX
+    solver and one of the port's loaded from its state
+    (`convert.load_trust_region`): xk, the radius, the penalties and the QN
+    state to 1e-12."""
     opts = {"output_file": None, "tr_output_file": None,
             "tr_max_iterations": 2}
     jprob, tprob = _rosen()
     js = jtr.TrustRegion(jprob, opts)
     js.optimize()
     state = {"xk": np.asarray(js.subproblem.xk), "tr_size": js.tr_size,
-             "penalty_gamma": js.penalty_gamma, "filter": js.filter,
+             "penalty_gamma": js.penalty_gamma.copy(), "filter": js.filter,
              "qn": fields_of(js.qn_holder["state"]),
              "iter_count": js.iter_count}
-    one = dict(opts, tr_max_iterations=1)
-    jn = jtr.TrustRegion(jprob, one)
-    jn.subproblem.xk = js.subproblem.xk
-    jn.tr_size, jn.iter_count = js.tr_size, js.iter_count
-    jn.penalty_gamma = js.penalty_gamma.copy()
-    jn.qn_holder["state"] = js.qn_holder["state"]
-    tn = convert.load_trust_region(ttr.TrustRegion(tprob, one), state)
+    tn = convert.load_trust_region(
+        ttr.TrustRegion(tprob, dict(opts, tr_max_iterations=1)), state)
     assert tn.iter_count == 2
-    jn.optimize()
+    js.options["tr_max_iterations"] = 1
+    js.optimize()
     tn.optimize()
-    assert_close(tn.subproblem.xk, jn.subproblem.xk, rtol=1e-12, atol=1e-14,
+    assert_close(tn.subproblem.xk, js.subproblem.xk, rtol=1e-12, atol=1e-14,
                  name="xk")
-    assert tn.tr_size == pytest.approx(jn.tr_size, rel=1e-12)
-    np.testing.assert_allclose(tn.penalty_gamma, jn.penalty_gamma,
+    assert tn.tr_size == pytest.approx(js.tr_size, rel=1e-12)
+    np.testing.assert_allclose(tn.penalty_gamma, js.penalty_gamma,
                                rtol=1e-12)
     for name in ("buf", "SS", "SY", "b0"):
         assert_close(getattr(tn.qn_holder["state"], name),
-                     getattr(jn.qn_holder["state"], name), rtol=1e-12,
+                     getattr(js.qn_holder["state"], name), rtol=1e-12,
                      atol=1e-14, name=name)
-
-
-def test_host_loop_takes_fused_iterates():
-    """SyntheticTopology(256): the host loop and `FusedTR`, both the port's,
-    take the same outer and inner iterations to the same point."""
-    opts = {"output_file": None, "tr_output_file": None,
-            "tr_max_iterations": 3, "abs_res_tol": 1e-8}
-    prob = TTopology(n=256, block=8, dtype=F64, device="cpu")
-    host = ttr.TrustRegion(prob, dict(opts))
-    hr = host.optimize()
-    fr, _ = ttr.FusedTR(prob, dict(opts)).solve()
-    assert (hr["niter"], host.inner_iters) == (fr["niter"], fr["subiters"])
-    assert hr["fobj"] == pytest.approx(fr["fobj"], rel=1e-12)
-    assert_close(hr["x"], fr["x"], rtol=0.0, atol=1e-12)
-    for key in ("infeas", "l1", "linfty"):
-        assert hr[key] == pytest.approx(fr[key], rel=1e-9, abs=1e-14), key
-
-
-def test_facade_default_route_is_host_tr():
-    assert_facade_matches(*_rosen(), {"tr_max_iterations": 3}, "tr")
