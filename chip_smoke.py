@@ -414,14 +414,14 @@ def phase_kernels(torch):
     return out
 
 
-def _build_solver(torch, n, dtype, device):
+def _build_solver(torch, n, dtype, device, **extra):
     from paropt_torch import ip_fused
     from paropt_torch.models.topology import SyntheticTopology
     from paropt_torch.ops import qn as qnmod
     prob = SyntheticTopology(n=n, block=BLOCK, dtype=dtype, device=device)
     opts = ip_fused.FusedIPOptions(use_quasi_newton_update=True,
                                    abs_res_tol=1e-6,
-                                   iterative_refinement_steps=0)
+                                   iterative_refinement_steps=0, **extra)
     fused = ip_fused.FusedIP(ip_fused.model_from_problem(prob), prob.nvars,
                              prob.ncon, prob.nwcon, prob.nwblock, opts,
                              dtype=dtype)
@@ -921,7 +921,7 @@ def phase_host_ip_full(torch, fused_iters):
           f"{path.name} does not hold one row per iteration")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the host IP")
-    return launches
+    return launches, niter
 
 
 def phase_host_mma(torch):
@@ -997,6 +997,370 @@ def phase_host_crosscheck(torch):
         check(ic == ih, f"{name}: integer log columns differ")
 
 
+NK_OPTS = {"use_hvec_product": True, "gmres_subspace_size": 25,
+           "eisenstat_walker_gamma": 0.05, "nk_switch_tol": 1e-3}
+
+
+def _nk_arms(path):
+    """The GMRES arms each iteration row of an IP log reports (its
+    ``iNK{n}`` flag; 0 for a quasi-Newton step)."""
+    arms = []
+    with open(path) as fp:
+        for line in fp:
+            parts = line.split()
+            if len(parts) >= 15 and parts[0].isdigit():
+                flags = [p for p in parts[15:] if p.startswith("iNK")]
+                arms.append(int(flags[0][3:]) if flags else 0)
+    return arms
+
+
+def phase_nk_full(torch, fused_iters, host_iters):
+    """Phase 16: the Newton-Krylov phase at n = 2^20 in float32, through
+    the facade's host IP and through FusedIP; returns the kernel launch
+    counts of the host solve."""
+    from paropt_torch.ops import kernels
+    from paropt_torch.models.topology import SyntheticTopology
+    tag = f"[nk n={N_MAIN} float32]"
+    # the host IP, phase 13's settings with the NK options
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    opts = dict(NK_OPTS, algorithm="ip", dtype="float32",
+                qn_subspace_size=MSUB, abs_res_tol=1e-6,
+                iterative_refinement_steps=0)
+    opt, res, wall, launches, peak, path = _host_route(
+        torch, prob, opts, "chip_smoke_nk.out")
+    ip = opt._inner
+    niter, reads = res["niter"], ip.syncs.count
+    arms = _nk_arms(path)
+    used = [a for a in arms if a]
+    log(f"{tag} host IP: converged={res['converged']} reason="
+        f"{res['reason']!r} iterations {niter} (phase 4 FusedIP "
+        f"{fused_iters}, phase 13 host IP {host_iters}); NK steps "
+        f"{len(used)}, GMRES arms used {sum(used)} {used}, run (= hvp "
+        f"count) {ip.nhvec}; fobj {res['fobj']:.9e}, res_norm "
+        f"{res['res_norm']:.3e}")
+    log(f"{tag} host IP: wall {wall:.4f} s = {wall / max(niter, 1):.4f} s "
+        f"per iteration; {reads} host reads = {reads / max(niter, 1):.1f} "
+        f"per iteration; peak memory {peak:.3f} GiB; kernel launches "
+        f"{launches}")
+    check(res["converged"] and res["res_norm"] < 1e-6,
+          f"host NK solve did not converge below 1e-6: {res['reason']!r}, "
+          f"res_norm {res['res_norm']:.3e}")
+    check(ip.nhvec > 0, "the host IP took no Newton-Krylov step")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the host NK "
+              f"solve")
+    # one further iteration from the converged point: NK engages there
+    ip.options["starting_point_strategy"] = "no_start_strategy"
+    ip.options["max_major_iters"] = 1
+    ip.options["output_file"] = None
+    before = ip.nhvec
+    window, nops, busy, _ = _profile_call(torch, ip.optimize)
+    _log_busy(tag, f"host IP: one further iteration ({ip.nhvec - before} "
+              "GMRES arms)", window, nops, busy)
+
+    # FusedIP, phase 4's settings with the NK options
+    fused, data, x0, qn0 = _build_solver(torch, N_MAIN, torch.float32,
+                                         "cuda", **NK_OPTS)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = fused.solve(x0, data, (), qn0, None,
+                        on_chunk=lambda st: steps.append(st.gmres_iters))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flaunches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    iters = int(state.k)
+    arms = [int(a) for a in steps]
+    ran = [a for a in arms if a]
+    log(f"{tag} FusedIP: converged={bool(state.converged)} iterations "
+        f"{iters} (phase 4 {fused_iters}); NK steps {len(ran)}, GMRES arms "
+        f"{sum(ran)} {ran} (the unroll runs {fused.opts.gmres_subspace_size}"
+        f" per NK step, the arms counted are those before convergence); "
+        f"fobj {float(state.fobj):.9e}, res_norm "
+        f"{float(state.res_norm):.3e}")
+    log(f"{tag} FusedIP: wall {wall:.4f} s = {wall / max(iters, 1):.4f} s "
+        f"per iteration; {fused.syncs.count} host reads = "
+        f"{fused.syncs.count / max(iters, 1):.2f} per iteration; peak "
+        f"memory {peak:.3f} GiB; kernel launches {flaunches}")
+    check(bool(state.converged) and float(state.res_norm) < 1e-6,
+          f"FusedIP NK solve did not converge (res "
+          f"{float(state.res_norm):.3e})")
+    check(ran, "FusedIP took no Newton-Krylov step")
+    for name, count in flaunches.items():
+        check(count > 0, f"kernel {name} was not launched by the FusedIP NK "
+              f"solve")
+    # one NK step under the profiler: step again to the first NK step
+    first = arms.index(ran[0])
+    st = fused.init(x0, data, (), qn0, None)
+    for _ in range(first):
+        st = fused.step(st, data, (), None)
+    window, nops, busy, split = _profile_call(
+        torch, lambda: fused.step(st, data, (), None),
+        ("paropt.kkt_factor", "paropt.kkt_solve_nk", "paropt.eval"))
+    _log_busy(tag, f"FusedIP: NK step {first}", window, nops, busy)
+    for name, (cnt, dev_ms, host_ms) in split.items():
+        log(f"{tag}   {name}: {cnt} device ops, device {dev_ms:.3f} ms, "
+            f"host {host_ms:.3f} ms")
+    return launches
+
+
+def phase_nk_crosscheck(torch):
+    """Phase 17: the host IP and FusedIP with NK at n = 2^14 in float64,
+    card against host."""
+    from paropt_torch.models.topology import SyntheticTopology
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        prob = SyntheticTopology(n=1 << 14, block=BLOCK,
+                                 dtype=torch.float64, device=dev)
+        opt, res, _, _, _, path = _host_route(
+            torch, prob, dict(NK_OPTS, algorithm="ip", dtype="float64",
+                              abs_res_tol=1e-6, max_major_iters=60),
+            f"chip_smoke_nk_{dev}.out")
+        fused, data, x0, qn0 = _build_solver(torch, 1 << 14, torch.float64,
+                                             dev, **NK_OPTS)
+        steps = []
+        state = fused.solve(x0, data, (), qn0, None,
+                            on_chunk=lambda st: steps.append(
+                                int(st.gmres_iters)))
+        out[dev] = (res["niter"], _nk_arms(path), opt._inner.nhvec,
+                    res["fobj"], int(state.k), steps, float(state.fobj))
+        log(f"[nk crosscheck] {dev}: host IP {res['niter']} iterations, "
+            f"arms {[a for a in out[dev][1] if a]}, hvp {out[dev][2]}, fobj "
+            f"{res['fobj']:.15e}; FusedIP {int(state.k)} steps, arms "
+            f"{[a for a in steps if a]}, fobj {float(state.fobj):.15e} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        check(res["converged"] and bool(state.converged),
+              f"{dev}: an NK cross-check solve did not converge")
+        check(opt._inner.nhvec > 0 and any(steps),
+              f"{dev}: NK did not engage")
+    c, h = out["cuda"], out["cpu"]
+    check(c[:3] == h[:3], f"host IP: iterations or GMRES arms differ: cuda "
+          f"{c[:3]}, cpu {h[:3]}")
+    check(c[4:6] == h[4:6], f"FusedIP: steps or GMRES arms differ: cuda "
+          f"{c[4:6]}, cpu {h[4:6]}")
+    for i in (3, 6):
+        check(abs(c[i] - h[i]) <= 1e-9 * abs(h[i]),
+              f"objectives differ: cuda {c[i]!r}, cpu {h[i]!r}")
+
+
+MESH3D = (160, 80, 80)
+
+
+def _time_layouts(torch, prob):
+    """K(E)·u per multigrid level in both layouts at the starting design:
+    device ms (CUDA events, median of 20), wall ms per call (host clock
+    over 20 calls ending in a synchronise: the launches included) and
+    device kernels per call, with the layout `auto` takes."""
+    from paropt_torch.models import fem_topology3d as f3
+    x0, _, _ = prob.get_vars_and_bounds()
+    levels, _ = prob._mg_setup(
+        prob._simp(prob._filter(x0)).reshape(prob.nex, prob.ney, prob.nez))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    for li, (Eg, _, fixed, cx, cy, cz) in enumerate(levels):
+        ug = torch.randn((3, cx + 1, cy + 1, cz + 1), device="cuda",
+                         dtype=Eg.dtype, generator=gen)
+        fns = {"grid": lambda: f3._kmul_grid(prob.KE, Eg, ug, fixed, True),
+               "aos": lambda: f3._kmul_aos(prob.KE, Eg, ug, fixed, True)}
+        _, rel = rel_err(torch, fns["grid"](), fns["aos"]())
+        check(rel < 1e-5, f"level {li}: the layouts differ by {rel:.3e}")
+        row = {"level": li, "dims": (cx, cy, cz), "rel": rel,
+               "auto": "grid" if prob._use_grid(cz + 1) else "aos"}
+        for name, fn in fns.items():
+            dev_ms = cuda_ms(torch, fn)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+            _, nops, _, _ = _profile_call(torch, fn)
+            row[name] = (dev_ms, wall_ms, nops)
+        rows.append(row)
+        log(f"[mma3d layouts] level {li} {cx}x{cy}x{cz} (nnz {cz + 1}): "
+            f"grid {row['grid'][0]:.4f} ms device / {row['grid'][1]:.4f} ms "
+            f"wall / {row['grid'][2]} kernels; aos {row['aos'][0]:.4f} ms "
+            f"device / {row['aos'][1]:.4f} ms wall / {row['aos'][2]} "
+            f"kernels; auto takes {row['auto']}; layouts agree to "
+            f"{rel:.1e}")
+    log(f"[mma3d layouts] clocks.sm, power.draw, power.limit: "
+        f"{smi_sample()}")
+    return rows
+
+
+def phase_mma3d_full(torch):
+    """Phase 18: FusedMMA on the JAX package's 1M-voxel flagship mesh in
+    float32, 20 outer iterations (cut from 60)."""
+    from paropt_torch.models.fem_topology3d import FEMTopology3D
+    from paropt_torch.ops import kernels
+    tag = "[mma3d {}x{}x{} float32]".format(*MESH3D)
+    t0 = time.perf_counter()
+    prob = FEMTopology3D(*MESH3D, cg_iters=40, solver="mgcg",
+                         dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    cx, cy, cz = prob._mg_dims[-1]
+    log(f"{tag} {prob.nvars} design variables, {prob.ndof} dofs, "
+        f"{len(prob._mg_dims)} multigrid levels (coarsest {cx}x{cy}x{cz}, "
+        f"{3 * (cx + 1) * (cy + 1) * (cz + 1)}-dof Cholesky); built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _time_layouts(torch, prob)
+    x0, _, _ = prob.get_vars_and_bounds()
+    f0 = float(prob.objective(x0))
+    E0 = prob._simp(prob._filter(x0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prob._solve(E0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{tag} one state solve ran under set_sync_debug_mode('error')")
+
+    warm = _mma_solver(torch, prob, 20, "float32")
+    warm._step(warm._state0)
+    solver = _mma_solver(torch, prob, 20, "float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    niter, sub = res["niter"], int(state.subiters)
+    log(f"{tag} outer iterations {niter}, inner IP iterations {sub}; "
+        f"fobj {res['fobj']:.9e} (start {f0:.9e}), infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.6e}, linf {res['linfty']:.6e}")
+    log(f"{tag} wall {wall:.3f} s = {wall / max(niter, 1):.4f} s per outer "
+        f"iteration ({solver.syncs.count} host reads); peak memory "
+        f"{peak:.3f} GiB; phase-3 kernel launches {launches}")
+    window, nops, busy, split = _profile_outer_step(torch, solver, state)
+    _log_busy(tag, "one outer iteration", window, nops, busy)
+    for name, (cnt, dev_ms, host_ms) in split.items():
+        log(f"{tag}   {name}: {cnt} device ops, device {dev_ms:.3f} ms, "
+            f"host {host_ms:.3f} ms")
+
+    x = res["x"]
+    check(torch.isfinite(x).all().item() and x.shape == (prob.nvars,),
+          "bad final design")
+    for key in ("fobj", "infeas", "l1", "linfty"):
+        check(math.isfinite(res[key]), f"non-finite {key}")
+    check(res["fobj"] < 0.5 * f0, f"fobj {res['fobj']:.4e} >= 0.5 of the "
+          f"start {f0:.4e}")
+    check(res["infeas"] < 1e-6, f"infeas {res['infeas']:.3e} >= 1e-6")
+    check(not any(launches.values()),
+          f"a phase-3 kernel ran on the 3-D MMA path: {launches}")
+    # the state solve at the final design, checked in float64
+    E = prob._simp(prob._filter(x))
+    u32 = prob._solve(E)
+    del solver, warm, state
+    p64 = FEMTopology3D(*MESH3D, cg_iters=40, solver="mgcg",
+                        dtype=torch.float64, device="cuda")
+    u64 = p64._solve(E.double())
+    relres = _relres(torch, p64, E, u64)
+    log(f"{tag} float64 state solve at the final design, cg_iters 40: "
+        f"relative residual {relres:.3e}")
+    if relres >= 1e-5:
+        p64.cg_iters = 80
+        u64 = p64._solve(E.double())
+        relres = _relres(torch, p64, E, u64)
+        log(f"{tag} the check solve alone raised to cg_iters 80: relative "
+            f"residual {relres:.3e}")
+    check(relres < 1e-5, f"float64 CG relative residual {relres:.3e} >= "
+          f"1e-5")
+    floor = _relres(torch, p64, E, u64.float())
+    c32 = float(prob.f @ u32)
+    c64 = float(p64.f @ u64)
+    log(f"{tag} float32 state solve: relative residual "
+        f"{_relres(torch, p64, E, u32):.3e}; float32 floor (float64 "
+        f"solution rounded) {floor:.3e}; float32 compliance {c32:.6e} vs "
+        f"float64 {c64:.6e} (rel err {abs(c32 - c64) / abs(c64):.3e})")
+
+
+def phase_mma3d_bench(torch):
+    """Phase 19: bench.py's 3-D MMA configuration as a correctness check."""
+    from paropt_torch.models.fem_topology3d import FEMTopology3D
+    prob = FEMTopology3D(32, 16, 16, cg_iters=25, solver="mgcg",
+                         dtype=torch.float32, device="cuda")
+    solver = _mma_solver(torch, prob, 40, "float32")
+    t0 = time.perf_counter()
+    res, state = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[mma3d 32x16x16 float32] outer iterations {res['niter']}, inner "
+        f"{int(state.subiters)}, fobj {res['fobj']:.6f}, infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.4e}; {wall:.2f} s = "
+        f"{wall / max(res['niter'], 1):.4f} s per outer iteration, "
+        f"{res['niter'] / wall:.3f} outer iterations/s")
+    check(0.08 < res["fobj"] < 0.14,
+          f"fobj {res['fobj']:.4f} outside bench.py's band (0.08, 0.14)")
+    check(res["infeas"] < 1e-8, f"infeas {res['infeas']:.3e} >= 1e-8")
+
+
+def phase_3d_crosscheck(torch):
+    """Phase 20: the 3-D models in float64, card against host: FusedMMA,
+    the host MMA through the facade and FusedTR on FEMTopology3D(8, 4, 4,
+    mgcg), FusedMMA on DMOFEMTopology3D(6, 3, 3)."""
+    from paropt_torch.models.fem_topology3d import (DMOFEMTopology3D,
+                                                    FEMTopology3D)
+    from paropt_torch.ops import kernels
+    from paropt_torch.utils.logging import unpack_mma_output
+
+    def fem(dev):
+        return FEMTopology3D(8, 4, 4, cg_iters=25, solver="mgcg",
+                             dtype=torch.float64, device=dev)
+
+    def fused_mma(make, iters):
+        def run(dev):
+            res, st = _mma_solver(torch, make(dev), iters, "float64").solve()
+            return res["fobj"], (res["niter"], int(st.subiters))
+        return run
+
+    def host_mma(dev):
+        opt, res, _, _, _, path = _host_route(
+            torch, fem(dev), {"algorithm": "mma", "mma_max_iterations": 10,
+                              "dtype": "float64"},
+            f"chip_smoke_cross_mma3d_{dev}.log")
+        rows = unpack_mma_output(str(path))
+        return res["fobj"], [rows[c].astype(int).tolist()
+                             for c in ("iter", "subiter")]
+
+    def fused_tr(dev):
+        res, _ = _tr_solver(fem(dev), "float64",
+                            tr_max_iterations=5).solve()
+        return res["fobj"], (res["niter"], res["subiters"])
+
+    cases = (("FusedMMA fem3d 8x4x4", fused_mma(fem, 10)),
+             ("host MMA fem3d 8x4x4", host_mma),
+             ("FusedTR fem3d 8x4x4", fused_tr),
+             ("FusedMMA dmo3d 6x3x3", fused_mma(
+                 lambda dev: DMOFEMTopology3D(6, 3, 3, cg_iters=250,
+                                              dtype=torch.float64,
+                                              device=dev), 12)))
+    for name, run in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            out[dev] = run(dev)
+            log(f"[3d crosscheck] {name} {dev}: fobj {out[dev][0]:.15e}, "
+                f"counts {out[dev][1]}, launches {dict(kernels.LAUNCHES)} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        (fc, ic), (fh, ih) = out["cuda"], out["cpu"]
+        check(ic == ih, f"{name}: iteration counts or log columns differ: "
+              f"cuda {ic}, cpu {ih}")
+        check(abs(fc - fh) <= 1e-9 * abs(fh),
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -1015,9 +1379,14 @@ def main():
     phase_tr_bench(torch)
     phase_tr_crosscheck(torch)
     host_tr_launches = phase_host_tr_full(torch, tr_niter, tr_fobj)
-    host_ip_launches = phase_host_ip_full(torch, ip_iters)
+    host_ip_launches, host_ip_iters = phase_host_ip_full(torch, ip_iters)
     phase_host_mma(torch)
     phase_host_crosscheck(torch)
+    nk_launches = phase_nk_full(torch, ip_iters, host_ip_iters)
+    phase_nk_crosscheck(torch)
+    phase_mma3d_full(torch)
+    phase_mma3d_bench(torch)
+    phase_3d_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -1026,6 +1395,7 @@ def main():
                      "tr_launches": tr_launches[name],
                      "host_tr_launches": host_tr_launches[name],
                      "host_ip_launches": host_ip_launches[name],
+                     "nk_launches": nk_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

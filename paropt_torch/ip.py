@@ -201,11 +201,11 @@ def _check_kkt_step(v: IPVars, d: ProblemData, p: IPVars, compact, mu,
 
 
 def _scale_step(v: IPVars, d: ProblemData, p: IPVars, mu, comp,
-                tau_min=0.95):
+                tau_min=0.95, inexact: bool = False):
     """Fraction-to-boundary scaling with the equal-step safeguard
     (`scaleKKTStep`, `ParOptInteriorPoint.cpp:3196-3278`).  Returns
-    (scaled step, ax, az, equalized).  JAX's ``inexact`` argument (a
-    Newton-Krylov step, always equalized) comes with the NK phase."""
+    (scaled step, ax, az, equalized).  An ``inexact`` (Newton-Krylov)
+    step is always equalized and not reported as such."""
     tau = torch.clamp(1.0 - mu, min=tau_min)
     ax, az = kkt.max_step_lengths(v, d, p, tau)
     # bound the ratio between the two step lengths by 100 (clamp the larger)
@@ -216,9 +216,11 @@ def _scale_step(v: IPVars, d: ProblemData, p: IPVars, mu, comp,
     comp_new = kkt.average_complementarity(v.axpy(ax, az, p), d)
     amin = torch.minimum(ax, az)
     ceq = comp_new > 10.0 * comp
+    if inexact:
+        ceq = torch.ones_like(ceq)
     ax = torch.where(ceq, amin, ax)
     az = torch.where(ceq, amin, az)
-    return p.scaled(ax, az), ax, az, ceq
+    return p.scaled(ax, az), ax, az, ceq & (not inexact)
 
 
 def _merit_parts(v: IPVars, d: ProblemData, p: IPVars, fobj, mu,
@@ -293,6 +295,16 @@ def _nk_projections(v: IPVars, d: ProblemData, b: IPVars, p: IPVars, mu,
         cproj = cproj - cwscale * torch.sum(
             b.zw * (d.Aw_matvec(p.x) - p.sw + p.tw))
     return fproj, cproj
+
+
+def _back_substitute(H, g, k):
+    """y solving the leading k x k upper-triangular system H y = g (a zero
+    diagonal, GMRES's lucky breakdown, gives a zero entry)."""
+    y = np.zeros(k)
+    for i in range(k - 1, -1, -1):
+        hd = H[i, i]
+        y[i] = 0.0 if hd == 0.0 else (g[i] - H[i, i + 1:k] @ y[i + 1:k]) / hd
+    return y
 
 
 def _merit_eval(x, s, t, sw, tw, fobj, c, cw, d: ProblemData, mu,
@@ -984,6 +996,165 @@ class InteriorPoint:
         self.vars = new_vars
         return True, skipped, damped
 
+    # -- Newton-Krylov (GMRES) inexact phase --------------------------------
+
+    def _gmres_step(self, d, mu_j, compact, rtol):
+        """Right-preconditioned GMRES on the exact KKT linearization with
+        the problem's Hessian-vector products (paropt_tpu/ip.py:1052-1225,
+        `computeKKTGMRESStep`).  The preconditioner is the KKT factor (with
+        the quasi-Newton Hessian when `use_qn_gmres_precon`); each Krylov
+        vector is stored as an x-vector w and one scalar a (the full
+        vector N·w + (a/‖b‖)·(I-NNᵀ)·b), so dots are wᵢᵀwⱼ + β·aᵢaⱼ with
+        β = ‖b_nonx‖²/‖b‖².  Returns (step, arms run) or (None, arms run)
+        when GMRES fails or the assembled step is not a descent direction.
+
+        JAX reads each modified Gram-Schmidt dot on the host as it goes;
+        here one arm's dots are formed on the device in float64 (the
+        vector dot in the solve's dtype, as in JAX) and read with the
+        arm's norm and projections in one transfer.  The Givens
+        rotations, back-substitution and gates run on the host in float64,
+        as in JAX."""
+        o = self.options
+        v = self.vars
+        m = o["gmres_subspace_size"]
+        atol = o["gmres_atol"]
+        rbb = o["rel_bound_barrier"]
+        f64 = torch.float64
+        r = kkt.kkt_residual(v, d, mu_j, rbb)
+        b = tmap(torch.neg, r)
+
+        use_qn = (self.qn is not None and bool(o["use_qn_gmres_precon"])
+                  and not o["sequential_linear_method"])
+        cq = compact if use_qn else (compact[0], None, None)
+        f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=o["qn_sigma"])
+
+        def precon(w):
+            return kkt.solve_kkt(v, d, f, tmap(torch.neg, w), qn_compact=cq)
+
+        def bmult(px):
+            b0c, Zc, Mc = cq
+            out = b0c * px
+            if Zc is not None and Zc.shape[0] > 0:
+                out = out - matmul(
+                    Zc.T, torch.linalg.solve_ex(Mc, matmul(Zc, px)).result)
+            return out
+
+        leaves = [getattr(b, fl.name) for fl in dataclasses.fields(b)]
+        zero = torch.zeros((), dtype=f64, device=self.device)
+        cinf = (torch.linalg.norm(d.c - v.s + v.t) if d.ncon else zero)
+        cwinf = (torch.linalg.norm(d.cw - v.sw + v.tw) if d.nwcon else zero)
+        bsq, bxx, cinfeas, cwinfeas = self.syncs.values(
+            sum(dot(a, a) for a in leaves), dot(b.x, b.x), cinf, cwinf)
+        bnorm = float(np.sqrt(bsq))
+        if bnorm == 0.0:
+            return None, 0
+        beta_n = (bsq - bxx) / (bnorm * bnorm)
+
+        def embed(wx, a):
+            scale = a / bnorm
+            return dataclasses.replace(tmap(lambda leaf: scale * leaf, b),
+                                       x=wx)
+
+        verbose = o["output_level"] > 0 and self._logger is not None
+        if verbose:
+            # the reference's GMRES trace (`ParOptInteriorPoint.cpp:
+            # 5904-5910`)
+            self._logger.write(
+                "%5s %4s %4s %7s %7s %8s %8s gmres rtol: %7.1e\n"
+                % ("gmres", "nhvc", "iter", "res", "rel", "fproj",
+                   "cproj", rtol))
+            self._logger.write("      %4d %4d %7.1e %7.1e\n"
+                               % (self.nhvec, 0, bnorm, 1.0))
+        fproj: list = []
+        cproj: list = []
+        # the tolerance exit is taken only for a candidate descent direction
+        # (`:6058-6069`): fpr < 0, or the constraint projection reduces the
+        # l2 infeasibility by at least 1% of its magnitude
+        descent_thresh = -0.01 * (cinfeas + cwinfeas)
+
+        W = [b.x / bnorm]
+        al = [1.0]
+        H = np.zeros((m + 1, m))
+        g_vec = np.zeros(m + 1)
+        g_vec[0] = bnorm
+        cs = np.zeros(m)
+        sn = np.zeros(m)
+        iters = 0
+        for j in range(m):
+            # z_j = K_B⁻¹ v̂_j (transient); K z_j = v̂_j + N(H-B)z_j.x
+            zj = precon(embed(W[j], al[j]))
+            fp, cp = _nk_projections(v, d, b, zj, mu_j, rbb)
+            hvp = self._tensor(self.problem.eval_hvec_product(
+                v.x, v.z, v.zw, zj.x))
+            self.nhvec += 1
+            w = W[j] + (hvp - bmult(zj.x))
+            # modified Gram-Schmidt, on the device, read once per arm
+            a = torch.tensor(al[j], dtype=f64, device=self.device)
+            hcol = []
+            for i in range(j + 1):
+                hij = dot(w, W[i]).to(f64) + beta_n * a * al[i]
+                w = w - hij.to(w.dtype) * W[i]
+                a = a - hij * al[i]
+                hcol.append(hij)
+            vals = self.syncs.values(*hcol, dot(w, w), a, fp, cp)
+            H[:j + 1, j] = vals[:j + 1]
+            wsq, a, fp, cp = vals[j + 1:]
+            fproj.append(fp)
+            cproj.append(cp)
+            wnorm = float(np.sqrt(max(wsq + beta_n * a * a, 0.0)))
+            H[j + 1, j] = wnorm
+            if j + 1 < m and wnorm > 0.0:
+                W.append(w / wnorm)
+                al.append(a / wnorm)
+            # Givens rotations maintaining the QR of H
+            for i in range(j):
+                t = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
+                H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
+                H[i, j] = t
+            denom = np.hypot(H[j, j], H[j + 1, j])
+            cs[j] = H[j, j] / denom if denom else 1.0
+            sn[j] = H[j + 1, j] / denom if denom else 0.0
+            H[j, j] = denom
+            H[j + 1, j] = 0.0
+            g_vec[j + 1] = -sn[j] * g_vec[j]
+            g_vec[j] = cs[j] * g_vec[j]
+            iters = j + 1
+            res = abs(g_vec[j + 1])
+            # projections of the current least-squares solution (`:6040-
+            # 6056`); a zero diagonal (lucky breakdown) counts as exact
+            yk = _back_substitute(H, g_vec, j + 1)
+            fpr = float(yk @ np.asarray(fproj))
+            cpr = float(yk @ np.asarray(cproj))
+            if verbose:
+                self._logger.write(
+                    "      %4d %4d %7.1e %7.1e %8.1e %8.1e\n"
+                    % (self.nhvec, j + 1, res, res / bnorm, fpr, cpr))
+            is_descent = fpr < 0.0 or cpr <= descent_thresh
+            if (is_descent and (res < rtol * bnorm or res < atol)) \
+                    or wnorm == 0.0:
+                break
+        k = iters
+        y = _back_substitute(H, g_vec, k)
+        final_res = abs(g_vec[k])
+        if not np.isfinite(final_res) or final_res > bnorm:
+            return None, iters
+        # p = K_B⁻¹ Σ yᵢ v̂ᵢ (one final preconditioner application)
+        u_w = torch.zeros_like(b.x)
+        for i in range(k):
+            u_w = u_w + float(y[i]) * W[i]
+        u_a = float(sum(y[i] * al[i] for i in range(k)))
+        p = precon(embed(u_w, u_a))
+        # the assembled step must itself be a descent direction
+        # (`:6154-6189`), else the quasi-Newton step is taken
+        fpr_f, cpr_f = self.syncs.values(
+            *_nk_projections(v, d, b, p, mu_j, rbb))
+        if verbose:
+            self._logger.write("      %9s %7s %7s %8.1e %8.1e\n"
+                               % ("final", " ", " ", fpr_f, cpr_f))
+        if not (fpr_f < 0.0 or cpr_f < descent_thresh):
+            return None, iters
+        return p, iters
+
     # -- checkpointing (`writeSolutionFile`/`readSolutionFile`) -------------
 
     def write_solution_file(self, path: str) -> None:
@@ -1032,11 +1203,6 @@ class InteriorPoint:
         if checkpoint:
             raise NotImplementedError(
                 "checkpoints are not ported yet (ROADMAP queue 1 item 13)")
-        if o["use_hvec_product"] and o["gmres_subspace_size"] > 0:
-            # the Newton-Krylov phase (paropt_tpu/ip.py:1052-1222)
-            raise NotImplementedError(
-                "the host-loop Newton-Krylov (GMRES) phase is not ported yet "
-                "(ROADMAP queue 1 item 7, with the fused NK phase)")
         norm_type = o["norm_type"]
         abs_res_tol = o["abs_res_tol"]
         abs_step_tol = o["abs_step_tol"]
@@ -1202,6 +1368,27 @@ class InteriorPoint:
 
             # -- step computation ------------------------------------------
             fobj_before_step = fobj_k
+            # Newton-Krylov inexact phase (`ParOptInteriorPoint.cpp:
+            # 4853-4899`): once all residuals drop below nk_switch_tol and
+            # the Eisenstat-Walker forcing term is small enough, solve the
+            # exact KKT linearization by preconditioned GMRES
+            inexact_step = None
+            if (o["use_hvec_product"] and o["gmres_subspace_size"] > 0
+                    and res_norm_prev is not None and res_norm_prev > 0):
+                gmres_rtol = (o["eisenstat_walker_gamma"]
+                              * (res_norm / res_norm_prev)
+                              ** o["eisenstat_walker_alpha"])
+                nk_tol = o["nk_switch_tol"]
+                if (prime < nk_tol and dual < nk_tol and infeas_n < nk_tol
+                        and gmres_rtol < o["max_gmres_rtol"]):
+                    inexact_step, gmres_iters = self._gmres_step(
+                        d, mu_j, self._qn_compact(), max(gmres_rtol, 1e-12))
+                    if inexact_step is not None:
+                        info += f"iNK{gmres_iters} "
+                    elif gmres_iters > 0 and o["output_level"] > 0:
+                        # a rejected non-descent NK step
+                        # (`ParOptInteriorPoint.cpp:4885-4888`)
+                        self._logger.write("      %9s\n" % "step failed")
             if o["use_diag_hessian"]:
                 # B = diag(h) from the problem's Hessian diagonal (the MMA
                 # subproblem path, `ParOptInteriorPoint.cpp:4944-4949`)
@@ -1217,7 +1404,9 @@ class InteriorPoint:
                 use_qn = use_qn_default
             sv_freq = o["step_verification_frequency"]
             sv_check_iter = sv_freq > 0 and k % sv_freq == 0
-            if barrier_strategy in mpc_family:
+            if inexact_step is not None:
+                p = inexact_step
+            elif barrier_strategy in mpc_family:
                 # affine probe: step toward μ = 0 from the same
                 # factorization
                 p_aff = step(compact, use_qn, self._scalar(0.0), refine=0)
@@ -1241,7 +1430,8 @@ class InteriorPoint:
                 p = step(compact, use_qn, mu_j)
 
             res_norm_prev = max(res_norm, 1e-30)
-            if sv_check_iter and barrier_strategy not in mpc_family:
+            if (sv_check_iter and inexact_step is None
+                    and barrier_strategy not in mpc_family):
                 err = self.syncs.value(_check_kkt_step(
                     self.vars, d, p, compact, mu_j, rbb, o["qn_sigma"],
                     use_qn))
@@ -1251,7 +1441,8 @@ class InteriorPoint:
             # fraction-to-boundary scaling (equal steps: Newton steps) and
             # the merit parts, read with the unscaled step norm in one go
             p_s, axj, azj, ceq = _scale_step(
-                self.vars, d, p, mu_j, comp_j, o["min_fraction_to_boundary"])
+                self.vars, d, p, mu_j, comp_j, o["min_fraction_to_boundary"],
+                inexact=inexact_step is not None)
             mp_t = _merit_parts(self.vars, d, p_s, self.fobj, mu_j, rbb,
                                 compact, use_qn)
             pxn = [norm(p.x, norm_type)] if abs_step_tol > 0.0 else []

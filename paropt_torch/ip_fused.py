@@ -29,11 +29,11 @@ from torch.profiler import record_function
 
 from .dtypes import resolve_dtype
 from .ip import (HostSyncs, _apply_step, _bound_pads, _merit_eval,
-                 _merit_parts, _scale_step, _trial_point)
+                 _merit_parts, _nk_projections, _scale_step, _trial_point)
 from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
-from .ops.veclib import multi_norm
+from .ops.veclib import dot, matmul, multi_norm
 from .tree import tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
@@ -52,8 +52,7 @@ class ModelFns:
 
 
 class FusedIPOptions(NamedTuple):
-    """Solver options: the JAX package's fields and defaults, without the
-    Newton-Krylov phase's."""
+    """Solver options: the JAX package's fields and defaults."""
     abs_res_tol: float = 1e-6
     init_barrier_param: float = 0.1
     monotone_barrier_fraction: float = 0.25
@@ -80,9 +79,17 @@ class FusedIPOptions(NamedTuple):
     use_diag_hessian: bool = False          # B from model.hess_diag
     sequential_linear_method: bool = False  # B = qn_sigma
     norm_type: str = "infinity"
-    # the fused Newton-Krylov phase is not ported yet: True raises
-    # NotImplementedError (its GMRES options come with it)
+    # the Newton-Krylov (inexact GMRES) phase: once the residuals drop
+    # below nk_switch_tol, solve the exact KKT linearization (autodiff
+    # Hessian-vector products) by right-preconditioned GMRES, unrolled
+    # inside the step
     use_hvec_product: bool = False
+    gmres_subspace_size: int = 25
+    nk_switch_tol: float = 1e-3
+    eisenstat_walker_gamma: float = 1.0
+    eisenstat_walker_alpha: float = 1.5
+    max_gmres_rtol: float = 0.1
+    gmres_atol: float = 1e-30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +114,21 @@ class FusedState:
     alpha: torch.Tensor             # last accepted line-search step
     alpha_x: torch.Tensor
     alpha_z: torch.Tensor
-    gmres_iters: torch.Tensor       # int32 NK iterations (always 0 here)
+    gmres_iters: torch.Tensor       # int32 GMRES arms run (0 = QN step)
 
 
-def _norms(r: IPVars, norm_type: str):
+def _norm_components(r: IPVars, norm_type: str):
+    """(prime, dual, infeas) residual norms: the three groups the
+    Newton-Krylov switch tests (`ParOptInteriorPoint.cpp:4853-4899`)."""
     prime = multi_norm([r.x, r.s, r.t], norm_type)
     dual = multi_norm([r.zl, r.zu, r.zs, r.zt, r.sw, r.tw, r.zsw, r.ztw],
                       norm_type)
     infeas = multi_norm([r.z, r.zw], norm_type)
+    return prime, dual, infeas
+
+
+def _norms(r: IPVars, norm_type: str):
+    prime, dual, infeas = _norm_components(r, norm_type)
     if norm_type == "infinity":
         return torch.maximum(prime, torch.maximum(dual, infeas))
     if norm_type == "l1":
@@ -133,10 +147,6 @@ class FusedIP:
     def __init__(self, model: ModelFns, n: int, ncon: int, nwcon: int = 0,
                  nwblock: int = 1, opts: FusedIPOptions = FusedIPOptions(),
                  dtype=None):
-        if opts.use_hvec_product:
-            raise NotImplementedError(
-                "the fused Newton-Krylov phase (use_hvec_product) is not "
-                "ported yet")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
@@ -308,6 +318,137 @@ def _fused_init(model: ModelFns, opts: FusedIPOptions, x0, d: ProblemData,
         gmres_iters=zero_i)
 
 
+def _fused_gmres(model: ModelFns, opts: FusedIPOptions, model_params,
+                 v: IPVars, d: ProblemData, f, cq, r: IPVars, rtol, mu):
+    """Right-preconditioned GMRES on the exact KKT linearization, unrolled
+    to ``gmres_subspace_size`` arms (paropt_tpu/ip_fused.py:442-615).
+
+    - operator: the Lagrangian Hessian-vector product ``model.hvp``;
+    - preconditioner: the KKT factor ``f`` (one `solve_kkt` per Krylov
+      vector);
+    - every arm runs: once converged, masks freeze the recurrence so the
+      later arms are inert, and nothing is read on the host;
+    - each Krylov vector is kept as an x-vector w and one scalar a (the
+      full vector N·w + (a/‖b‖)·(I-NNᵀ)·b); the step is recovered with one
+      more `solve_kkt` of the subspace combination, negated so that it
+      solves K p = -r like the quasi-Newton step;
+    - the assembled step must be a descent direction, else the
+      quasi-Newton step ``solve_kkt(r)`` is returned.
+
+    Returns (step, arms run); the arms are reported even when the step is
+    rejected, as in JAX."""
+
+    def tdot(a, c):
+        return sum(dot(getattr(a, fl.name), getattr(c, fl.name))
+                   for fl in dataclasses.fields(a))
+
+    def precon(w):
+        return kkt.solve_kkt(v, d, f, w, qn_compact=cq)
+
+    def bmult(px):
+        b0c, Zc, Mc = cq
+        out = b0c * px
+        if Zc is not None and Zc.shape[0] > 0:
+            out = out - matmul(
+                Zc.T, torch.linalg.solve_ex(Mc, matmul(Zc, px)).result)
+        return out
+
+    msub = opts.gmres_subspace_size
+    b = r  # solve_kkt solves K p = -b; GMRES runs on A = -K·K_B⁻¹
+    bnorm = torch.sqrt(tdot(b, b))
+    bsafe = torch.clamp(bnorm, min=1e-300)
+    atol = opts.gmres_atol
+    # β: the non-x energy of b, normalized
+    beta_n = (tdot(b, b) - dot(b.x, b.x)) / (bsafe * bsafe)
+
+    def embed(wx, a):
+        scale = a / bsafe
+        return dataclasses.replace(tmap(lambda leaf: scale * leaf, b), x=wx)
+
+    # descent-gate threshold (`ParOptInteriorPoint.cpp:6154-6189`), applied
+    # to the assembled step after the loop
+    zero = torch.zeros((), dtype=v.x.dtype, device=v.x.device)
+    cinfeas = torch.linalg.norm(d.c - v.s + v.t) if d.ncon else zero
+    cwinfeas = torch.linalg.norm(d.cw - v.sw + v.tw) if d.nwcon else zero
+    descent_thresh = -0.01 * (cinfeas + cwinfeas)
+
+    W = [b.x / bsafe]                     # x-components of the basis
+    al = [zero + 1.0]                     # non-x scalars
+    H = [[zero for _ in range(msub)] for _ in range(msub + 1)]
+    cs = [zero for _ in range(msub)]
+    sn = [zero for _ in range(msub)]
+    g_vec = [zero for _ in range(msub + 1)]
+    g_vec[0] = bnorm
+    done = torch.zeros((), dtype=torch.bool, device=v.x.device)
+    last_res = bnorm
+    iters = torch.zeros((), dtype=torch.int32, device=v.x.device)
+
+    for j in range(msub):
+        was_done = done
+        # z_j = -K_B⁻¹ v̂_j (transient); A v̂_j = K z_j = -v̂_j + N(H-B)z_j.x
+        zj = precon(embed(W[j], al[j]))
+        hv = model.hvp(model_params, v.x, v.z, v.zw, zj.x)
+        w = -W[j] + (hv - bmult(zj.x))
+        a = -al[j]
+        for i in range(j + 1):
+            hij = dot(w, W[i]) + beta_n * a * al[i]
+            H[i][j] = torch.where(was_done, zero, hij)
+            w = w - H[i][j] * W[i]
+            a = a - H[i][j] * al[i]
+        wnorm = torch.sqrt(torch.clamp(dot(w, w) + beta_n * a * a, min=0.0))
+        wsafe = torch.clamp(wnorm, min=1e-300)
+        hsub = torch.where(was_done, zero, wnorm)
+        W.append(w / wsafe)
+        al.append(a / wsafe)
+        # Givens rotations maintaining the QR of H
+        for i in range(j):
+            t = cs[i] * H[i][j] + sn[i] * H[i + 1][j]
+            H[i + 1][j] = -sn[i] * H[i][j] + cs[i] * H[i + 1][j]
+            H[i][j] = t
+        denom = torch.sqrt(H[j][j] ** 2 + hsub ** 2)
+        dsafe = torch.clamp(denom, min=1e-300)
+        cs[j] = torch.where(denom > 0.0, H[j][j] / dsafe, zero + 1.0)
+        sn[j] = torch.where(denom > 0.0, hsub / dsafe, zero)
+        # frozen arms keep H[j][j] = 1 so back-substitution gives y = 0
+        H[j][j] = torch.where(was_done, zero + 1.0, denom)
+        g_next = -sn[j] * g_vec[j]
+        g_vec[j] = torch.where(was_done, g_vec[j], cs[j] * g_vec[j])
+        g_vec[j + 1] = torch.where(was_done, zero, g_next)
+        res = torch.abs(g_vec[j + 1])
+        last_res = torch.where(was_done, last_res, res)
+        iters = iters + (~was_done).to(torch.int32)
+        done = done | (res < rtol * bnorm) | (res < atol) | (wnorm <= 0.0)
+
+    # back-substitute y over the whole (masked) subspace
+    y = [zero for _ in range(msub)]
+    for i in range(msub - 1, -1, -1):
+        acc = g_vec[i]
+        for t in range(i + 1, msub):
+            acc = acc - H[i][t] * y[t]
+        y[i] = acc / torch.where(H[i][i] != 0.0, H[i][i], zero + 1.0)
+    # the subspace combination u = Σ yᵢ v̂ᵢ in (w, a) form
+    u_w = y[0] * W[0]
+    u_a = y[0] * al[0]
+    for i in range(1, msub):
+        u_w = u_w + y[i] * W[i]
+        u_a = u_a + y[i] * al[i]
+
+    final_res = last_res
+    ok = (torch.isfinite(final_res) & (final_res <= bnorm) & (iters > 0)
+          & torch.isfinite(dot(u_w, u_w) + beta_n * u_a * u_a))
+    # precon solves K z = -w, so K (Σ yᵢ zᵢ) = +r: negate the combination
+    # before the final preconditioner application (JAX's sign fix)
+    p_nk = precon(embed(torch.where(ok, -u_w, b.x),
+                        torch.where(ok, -u_a, bsafe)))
+    # the assembled step must be a descent direction; the fused b is the
+    # unnegated residual, so cproj flips sign
+    fpr, cpr_neg = _nk_projections(v, d, b, p_nk, mu, opts.rel_bound_barrier)
+    accept = ok & ((fpr < 0.0) | (-cpr_neg < descent_thresh))
+    p_qn = precon(b)
+    p_out = tmap(lambda a2, b2: torch.where(accept, a2, b2), p_nk, p_qn)
+    return p_out, iters
+
+
 def _clip(x, lo, hi):
     """jnp.clip with tensor bounds: min(max(x, lo), hi)."""
     return torch.minimum(torch.maximum(x, lo), hi)
@@ -401,10 +542,32 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         (res_norm < tol) | (state.line_search_test >= 2))
 
     # -- KKT step -----------------------------------------------------------
-    with record_function("paropt.kkt_solve"):
-        p = kkt.solve_kkt(v, d, f, r,
-                          refine_steps=opts.iterative_refinement_steps,
-                          qn_compact=cq)
+    nk_iters = zero_i
+    use_nk = False
+    if (opts.use_hvec_product and opts.gmres_subspace_size > 0
+            and model.hvp is not None):
+        # Newton-Krylov switch (`ParOptInteriorPoint.cpp:4853-4899`):
+        # residual groups small and the Eisenstat-Walker forcing term small.
+        # JAX's lax.cond runs one branch; here the switch is read on the
+        # host, once per step
+        prime0, dual0, infeas0 = _norm_components(r, opts.norm_type)
+        ew_rtol = (opts.eisenstat_walker_gamma
+                   * (res_norm / torch.clamp(state.res_norm, min=1e-300))
+                   ** opts.eisenstat_walker_alpha)
+        nk_tol = opts.nk_switch_tol
+        use_nk = host((state.k > 0) & (prime0 < nk_tol) & (dual0 < nk_tol)
+                      & (infeas0 < nk_tol)
+                      & (ew_rtol < opts.max_gmres_rtol))
+    if use_nk:
+        with record_function("paropt.kkt_solve_nk"):
+            p, nk_iters = _fused_gmres(
+                model, opts, model_params, v, d, f, cq, r,
+                torch.clamp(ew_rtol, 1e-12, opts.max_gmres_rtol), mu)
+    else:
+        with record_function("paropt.kkt_solve"):
+            p = kkt.solve_kkt(v, d, f, r,
+                              refine_steps=opts.iterative_refinement_steps,
+                              qn_compact=cq)
 
     # -- fraction-to-boundary scaling and the merit pieces -----------------
     ps, ax, az, _ = _scale_step(v, d, p, mu, comp,
@@ -527,7 +690,7 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         g=g_n, A=A_n, k=state.k + 1, converged=converged,
         res_norm=res_norm, comp=comp, fobj_prev=state.fobj,
         line_search_test=ls_count, neval=state.neval + neval_add + 1,
-        alpha=alpha, alpha_x=ax, alpha_z=az, gmres_iters=zero_i)
+        alpha=alpha, alpha_x=ax, alpha_z=az, gmres_iters=nk_iters)
 
     # fail-stop: a non-finite accepted state freezes at the previous one
     bad = ~(torch.isfinite(fobj_n) & torch.isfinite(torch.max(torch.abs(vn.x)))

@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_torch import Optimizer, convert, dtypes
-from paropt_torch.models import analytic, fem_topology, topology
+from paropt_torch import Optimizer, convert, dtypes, ip, ip_fused
+from paropt_torch.models import (analytic, fem_topology, fem_topology3d,
+                                 topology)
 from paropt_torch.ops import kkt, qn
 
 
@@ -36,6 +37,10 @@ CONSTRUCTORS = {
     "FEMTopology": (fem_topology, lambda: fem_topology.FEMTopology(4, 2)),
     "DMOFEMTopology": (fem_topology,
                        lambda: fem_topology.DMOFEMTopology(4, 2)),
+    "FEMTopology3D": (fem_topology3d,
+                      lambda: fem_topology3d.FEMTopology3D(4, 2, 2)),
+    "DMOFEMTopology3D": (fem_topology3d,
+                         lambda: fem_topology3d.DMOFEMTopology3D(2, 2, 2)),
     "Rosenbrock": (analytic, analytic.Rosenbrock),
     "SparseRosenbrock": (analytic, analytic.SparseRosenbrock),
     "ScalableRosenbrock": (analytic, analytic.ScalableRosenbrock),
@@ -105,3 +110,59 @@ def test_route_makes_no_tensor_off_the_problem_device(algorithm, fused):
     finally:
         torch.set_default_device(None)
     assert res["x"].device.type == "cpu"
+
+
+def _on_meta_default(fn):
+    torch.set_default_device("meta")
+    try:
+        return fn()
+    finally:
+        torch.set_default_device(None)
+
+
+NK = {"use_hvec_product": True, "gmres_subspace_size": 4,
+      "nk_switch_tol": 1e20, "eisenstat_walker_gamma": 0.05,
+      "max_gmres_rtol": 1.0}
+
+
+def test_nk_iteration_makes_no_tensor_off_the_problem_device():
+    """One Newton-Krylov step of the host IP and of FusedIP, on the CPU,
+    under a meta default device."""
+    prob = topology.SyntheticTopology(n=64, block=8, dtype=torch.float64,
+                                      device="cpu")
+    solver = ip.InteriorPoint(prob, dict(NK, output_file=None,
+                                         max_major_iters=3))
+    res = _on_meta_default(solver.optimize)
+    assert solver.nhvec > 0 and res["x"].device.type == "cpu"
+
+    fused = ip_fused.FusedIP(ip_fused.model_from_problem(prob), 64, 1,
+                             prob.nwcon, 1,
+                             ip_fused.FusedIPOptions(
+                                 use_quasi_newton_update=True, **NK),
+                             dtype=torch.float64)
+    data, x0 = ip_fused.data_template_from_problem(prob,
+                                                   dtype=torch.float64)
+    state = fused.init(x0, data, (), qn.qn_init(4, 64, dtype=torch.float64,
+                                                device="cpu"), None)
+    state = fused.step(state, data, (), None)
+    state = _on_meta_default(lambda: fused.step(state, data, (), None))
+    assert int(state.gmres_iters) > 0
+    assert state.vars.x.device.type == "cpu"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: fem_topology3d.FEMTopology3D(4, 4, 4, cg_iters=4,
+                                         solver="mgcg", device="cpu"),
+    lambda: fem_topology3d.DMOFEMTopology3D(2, 2, 2, cg_iters=4,
+                                            device="cpu")],
+    ids=["FEMTopology3D", "DMOFEMTopology3D"])
+def test_3d_constructors_stay_on_the_device_and_turn_tf32_off(make):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    prob = _on_meta_default(make)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    x0, _, _ = prob.get_vars_and_bounds()
+    assert x0.device.type == "cpu"
+    f = _on_meta_default(lambda: prob.objective(x0))
+    assert f.device.type == "cpu" and torch.isfinite(f)

@@ -187,3 +187,32 @@ def test_cuda_host_routes_keep_state_on_the_card(cuda, algorithm):
         assert kernels.LAUNCHES["quasi_def_apply"] > 0
     else:
         assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+
+
+NK_OPTS = {"use_hvec_product": True, "gmres_subspace_size": 25,
+           "eisenstat_walker_gamma": 0.05, "nk_switch_tol": 1e-3}
+
+
+def test_cuda_nk_solve_matches_the_cpu(cuda):
+    """The host IP with the Newton-Krylov phase on SyntheticTopology(2^14)
+    in float64: on the card its GMRES preconditioner launches the
+    quasi-definite apply and each NK factor setup phi_gram; the card run
+    takes the CPU run's iterations and Hessian-vector products, fobj to
+    1e-9."""
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = SyntheticTopology(n=1 << 14, block=8, dtype=torch.float64,
+                                 device=dev)
+        opt = Optimizer(prob, dict(NK_OPTS, algorithm="ip",
+                                   output_file=None, abs_res_tol=1e-6,
+                                   max_major_iters=60))
+        kernels.reset_launches()
+        res = opt.optimize()
+        out[dev.type] = (res, opt._inner.nhvec, dict(kernels.LAUNCHES))
+    (rc, hc, lc), (rh, hh, lh) = out["cuda"], out["cpu"]
+    assert rc["converged"] and rh["converged"]
+    assert hc == hh > 0
+    assert rc["niter"] == rh["niter"]
+    assert all(n > 0 for n in lc.values()), lc
+    assert not any(lh.values())
+    assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])
