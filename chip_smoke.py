@@ -91,12 +91,46 @@ their logs under build/:
    tensors and once on the CPU: the same iteration counts, fobj within
    1e-9 relative and equal integer columns in their logs.
 
+Phases 16-20 run the Newton-Krylov (GMRES) phase and the 3-D voxel FEM:
+
+16. NK at full width: SyntheticTopology(n = 2^20) in float32 through the
+   host IP (`Optimizer`, phase 13's settings) and through FusedIP (phase
+   4's settings), each with tests/test_gmres.py's NK options (Hessian-vector
+   products, GMRES subspace 25, Eisenstat-Walker gamma 0.05, nk_switch_tol
+   1e-3).  Each must converge below 1e-6, take at least one NK step and
+   launch every kernel; each prints its iterations beside phases 4 and 13,
+   NK steps, GMRES arms, Hessian-vector products, seconds and host reads
+   per iteration, peak memory, launches, and one NK iteration under
+   torch.profiler;
+17. card against host in float64: the host IP and FusedIP with NK on
+   SyntheticTopology(n = 2^14), once with CUDA tensors and once on the CPU:
+   the same iterations and GMRES arms per iteration, fobj within 1e-9;
+18. 3-D MMA at full width: FEMTopology3D(160, 80, 80, cg_iters=40,
+   solver="mgcg"), 1,024,000 design variables and 3,168,963 dofs, in
+   float32.  First K(E)·u on each multigrid level in both layouts (device
+   ms by CUDA events, median of 20; wall ms per call; kernels per call) and
+   the layout `auto` takes; then FusedMMA for 20 outer iterations with
+   phase 6's prints and checks (fobj < 0.5 of the start, infeasibility
+   < 1e-6, a sync-free state solve, no phase-3 kernel).  A float64 state
+   solve at the final design must reach ||K u - f|| / ||f|| < 1e-5 (its
+   cg_iters raised to 80 for that solve alone if 40 do not), and the
+   float32 residual is printed beside its floor;
+19. bench.py's 3-D configuration: FusedMMA on FEMTopology3D(32, 16, 16,
+   cg_iters=25, solver="mgcg"), float32, 40 outer iterations; fobj must
+   fall in bench.py's band (0.08, 0.14) with infeasibility < 1e-8;
+20. card against host in float64 on FEMTopology3D(8, 4, 4, mgcg): FusedMMA
+   (10 outer iterations), the host MMA through the facade (equal log
+   columns iter and subiter) and FusedTR (5 outer iterations); FusedMMA
+   (12) on DMOFEMTopology3D(6, 3, 3, cg_iters=250): the same counts, fobj
+   within 1e-9 relative.
+
 The line before the last is a JSON object with one entry per kernel (its
 launches in the phase-4 IP solve, as tr_launches in the phase-9 TR solve,
-and as host_tr_launches and host_ip_launches in phases 12 and 13; its
-phase-3 error, times and bound; library_ms is null, since no single
-PyTorch call computes any of the three functions); the last line is
-{"ok": true, "device": {...}}.  Only torch and numpy are used.
+as host_tr_launches and host_ip_launches in phases 12 and 13, and as
+nk_launches in phase 16's host NK solve; its phase-3 error, times and
+bound; library_ms is null, since no single PyTorch call computes any of
+the three functions); the last line is {"ok": true, "device": {...}}.
+Only torch and numpy are used.
 """
 
 import json
@@ -1027,6 +1061,15 @@ def phase_nk_full(torch, fused_iters, host_iters):
     opts = dict(NK_OPTS, algorithm="ip", dtype="float32",
                 qn_subspace_size=MSUB, abs_res_tol=1e-6,
                 iterative_refinement_steps=0)
+    # warm-up: torch.func's first Hessian-vector product starts its
+    # machinery once per process
+    x0, _, _ = prob.get_vars_and_bounds()
+    zw = torch.zeros(prob.nwcon, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    prob.eval_hvec_product(x0, zw[:1], zw, x0)
+    torch.cuda.synchronize()
+    log(f"{tag} first Hessian-vector product (warm-up): "
+        f"{time.perf_counter() - t0:.3f} s")
     opt, res, wall, launches, peak, path = _host_route(
         torch, prob, opts, "chip_smoke_nk.out")
     ip = opt._inner
@@ -1151,6 +1194,31 @@ def phase_nk_crosscheck(torch):
 MESH3D = (160, 80, 80)
 
 
+def _kernels_per_call(torch, fn, reps=20):
+    """The device kernels one call of ``fn`` launches.  The profiler can
+    drop the first device events of a window, so ``fn`` runs 2·reps times
+    in one window with a spin kernel between the halves, and the kernels
+    after the spin are counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("paropt.")),
+                 key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(dev) if "spin" in e.name]
+    check(spins, "the profiler recorded no spin kernel")
+    return (len(dev) - spins[-1] - 1) / reps
+
+
 def _time_layouts(torch, prob):
     """K(E)·u per multigrid level in both layouts at the starting design:
     device ms (CUDA events, median of 20), wall ms per call (host clock
@@ -1162,7 +1230,6 @@ def _time_layouts(torch, prob):
         prob._simp(prob._filter(x0)).reshape(prob.nex, prob.ney, prob.nez))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    rows = []
     for li, (Eg, _, fixed, cx, cy, cz) in enumerate(levels):
         ug = torch.randn((3, cx + 1, cy + 1, cz + 1), device="cuda",
                          dtype=Eg.dtype, generator=gen)
@@ -1170,29 +1237,24 @@ def _time_layouts(torch, prob):
                "aos": lambda: f3._kmul_aos(prob.KE, Eg, ug, fixed, True)}
         _, rel = rel_err(torch, fns["grid"](), fns["aos"]())
         check(rel < 1e-5, f"level {li}: the layouts differ by {rel:.3e}")
-        row = {"level": li, "dims": (cx, cy, cz), "rel": rel,
-               "auto": "grid" if prob._use_grid(cz + 1) else "aos"}
+        row = {"auto": "grid" if prob._use_grid(cz + 1) else "aos"}
         for name, fn in fns.items():
             dev_ms = cuda_ms(torch, fn)
-            fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(20):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 20 * 1e3
-            _, nops, _, _ = _profile_call(torch, fn)
-            row[name] = (dev_ms, wall_ms, nops)
-        rows.append(row)
+            row[name] = (dev_ms, wall_ms, _kernels_per_call(torch, fn))
         log(f"[mma3d layouts] level {li} {cx}x{cy}x{cz} (nnz {cz + 1}): "
             f"grid {row['grid'][0]:.4f} ms device / {row['grid'][1]:.4f} ms "
-            f"wall / {row['grid'][2]} kernels; aos {row['aos'][0]:.4f} ms "
-            f"device / {row['aos'][1]:.4f} ms wall / {row['aos'][2]} "
+            f"wall / {row['grid'][2]:g} kernels; aos {row['aos'][0]:.4f} ms "
+            f"device / {row['aos'][1]:.4f} ms wall / {row['aos'][2]:g} "
             f"kernels; auto takes {row['auto']}; layouts agree to "
             f"{rel:.1e}")
     log(f"[mma3d layouts] clocks.sm, power.draw, power.limit: "
         f"{smi_sample()}")
-    return rows
 
 
 def phase_mma3d_full(torch):
@@ -1210,7 +1272,9 @@ def phase_mma3d_full(torch):
         f"{len(prob._mg_dims)} multigrid levels (coarsest {cx}x{cy}x{cz}, "
         f"{3 * (cx + 1) * (cy + 1) * (cz + 1)}-dof Cholesky); built in "
         f"{time.perf_counter() - t0:.2f} s")
+    t1 = time.perf_counter()
     _time_layouts(torch, prob)
+    log(f"{tag} layouts timed in {time.perf_counter() - t1:.2f} s")
     x0, _, _ = prob.get_vars_and_bounds()
     f0 = float(prob.objective(x0))
     E0 = prob._simp(prob._filter(x0))
@@ -1223,8 +1287,11 @@ def phase_mma3d_full(torch):
     torch.cuda.synchronize()
     log(f"{tag} one state solve ran under set_sync_debug_mode('error')")
 
+    t1 = time.perf_counter()
     warm = _mma_solver(torch, prob, 20, "float32")
     warm._step(warm._state0)
+    torch.cuda.synchronize()
+    log(f"{tag} warm-up outer iteration {time.perf_counter() - t1:.2f} s")
     solver = _mma_solver(torch, prob, 20, "float32")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1259,12 +1326,16 @@ def phase_mma3d_full(torch):
     check(not any(launches.values()),
           f"a phase-3 kernel ran on the 3-D MMA path: {launches}")
     # the state solve at the final design, checked in float64
+    t1 = time.perf_counter()
     E = prob._simp(prob._filter(x))
     u32 = prob._solve(E)
     del solver, warm, state
     p64 = FEMTopology3D(*MESH3D, cg_iters=40, solver="mgcg",
                         dtype=torch.float64, device="cuda")
     u64 = p64._solve(E.double())
+    torch.cuda.synchronize()
+    log(f"{tag} float64 model and check solve {time.perf_counter() - t1:.2f}"
+        f" s")
     relres = _relres(torch, p64, E, u64)
     log(f"{tag} float64 state solve at the final design, cg_iters 40: "
         f"relative residual {relres:.3e}")

@@ -78,6 +78,8 @@ def qn_state(fields: dict, device=None) -> QNState:
 
 
 def fused_state(fields: dict, device=None) -> FusedState:
+    """The port's FusedIP state from JAX's `FusedState`, with the GMRES arms
+    of a Newton-Krylov step (``gmres_iters``) and the QN state."""
     return _from_fields(FusedState, fields, device)
 
 

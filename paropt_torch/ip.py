@@ -13,16 +13,19 @@ decisions between them are JAX's.  Each decision reads device scalars on
 the host; ``InteriorPoint.syncs`` counts those reads (several scalars read
 together count once).
 
+With ``use_hvec_product`` and a GMRES subspace, the Newton-Krylov phase
+(`_gmres_step`) takes over once the residuals drop below ``nk_switch_tol``:
+right-preconditioned GMRES on the exact KKT linearization, with the
+problem's Hessian-vector products and the KKT factor as preconditioner.
+
 Also here: the merit-function pieces the fused solvers share
 (``_barrier_terms``, ``_infeas_l2``, ``_bound_pads``), the host-read counter
 `HostSyncs` and the ``qn_storage_dtype`` mapping.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the Newton-Krylov (GMRES) phase (``use_hvec_product`` with a GMRES
-subspace; item 7), checkpoints (``write_solution_file``,
-``read_solution_file``, ``optimize(checkpoint=...)``; item 13), the
-general-CSR and callback-sparse constraint paths (item 11) and sharded
-state (item 14).
+item: checkpoints (``write_solution_file``, ``read_solution_file``,
+``optimize(checkpoint=...)``; item 13), the general-CSR and callback-sparse
+constraint paths (item 11) and sharded state (item 14).
 """
 
 from __future__ import annotations
@@ -254,15 +257,21 @@ def _merit_parts(v: IPVars, d: ProblemData, p: IPVars, fobj, mu,
     infeas_proj = torch.where(infeas > 0.0,
                               proj / torch.clamp(infeas, min=1e-300), 0.0)
     if use_qn:
-        b0, Z, M = compact
-        Bpx = b0 * p.x
-        if Z is not None and Z.shape[0] > 0:
-            Bpx = Bpx - matmul(
-                Z.T, torch.linalg.solve_ex(M, matmul(Z, p.x)).result)
-        pTBp = dot(p.x, Bpx)
+        pTBp = dot(p.x, _bmult(compact, p.x))
     else:
         pTBp = torch.zeros_like(fobj)
     return merit0, pmerit0, infeas, infeas_proj, pTBp
+
+
+def _bmult(compact, px):
+    """B @ px for a Hessian in compact form (b0, Z, M): b0·px - Zᵀ M⁻¹ Z px
+    (Z None or empty for a scalar or diagonal b0)."""
+    b0, Z, M = compact
+    out = b0 * px
+    if Z is not None and Z.shape[0] > 0:
+        out = out - matmul(Z.T,
+                           torch.linalg.solve_ex(M, matmul(Z, px)).result)
+    return out
 
 
 def _nk_projections(v: IPVars, d: ProblemData, b: IPVars, p: IPVars, mu,
@@ -1031,14 +1040,6 @@ class InteriorPoint:
         def precon(w):
             return kkt.solve_kkt(v, d, f, tmap(torch.neg, w), qn_compact=cq)
 
-        def bmult(px):
-            b0c, Zc, Mc = cq
-            out = b0c * px
-            if Zc is not None and Zc.shape[0] > 0:
-                out = out - matmul(
-                    Zc.T, torch.linalg.solve_ex(Mc, matmul(Zc, px)).result)
-            return out
-
         leaves = [getattr(b, fl.name) for fl in dataclasses.fields(b)]
         zero = torch.zeros((), dtype=f64, device=self.device)
         cinf = (torch.linalg.norm(d.c - v.s + v.t) if d.ncon else zero)
@@ -1087,7 +1088,7 @@ class InteriorPoint:
             hvp = self._tensor(self.problem.eval_hvec_product(
                 v.x, v.z, v.zw, zj.x))
             self.nhvec += 1
-            w = W[j] + (hvp - bmult(zj.x))
+            w = W[j] + (hvp - _bmult(cq, zj.x))
             # modified Gram-Schmidt, on the device, read once per arm
             a = torch.tensor(al[j], dtype=f64, device=self.device)
             hcol = []

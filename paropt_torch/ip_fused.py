@@ -12,9 +12,11 @@ the solve loop's convergence check.
 
 Ported: all four barrier strategies, the least-squares and affine-step
 starts, compact-QN / diagonal / fixed Hessians, the merit line search with
-the ρ update, the in-loop QN update, the non-finite fail-stop, the
-freeze once converged and the facade's whole solve (`fused_ip_optimize`).
-Not yet ported: the fused Newton-Krylov phase (``use_hvec_product``),
+the ρ update, the in-loop QN update, the Newton-Krylov phase
+(``use_hvec_product``: `_fused_gmres`, unrolled to the subspace size; the
+switch to it is read on the host once per step where JAX's ``lax.cond``
+runs one branch), the non-finite fail-stop, the freeze once converged and
+the facade's whole solve (`fused_ip_optimize`).  Not yet ported:
 ``solve_batched`` and the chunked solve.
 """
 
@@ -28,12 +30,12 @@ import torch
 from torch.profiler import record_function
 
 from .dtypes import resolve_dtype
-from .ip import (HostSyncs, _apply_step, _bound_pads, _merit_eval,
+from .ip import (HostSyncs, _apply_step, _bmult, _bound_pads, _merit_eval,
                  _merit_parts, _nk_projections, _scale_step, _trial_point)
 from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
-from .ops.veclib import dot, matmul, multi_norm
+from .ops.veclib import dot, multi_norm
 from .tree import tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
@@ -345,21 +347,14 @@ def _fused_gmres(model: ModelFns, opts: FusedIPOptions, model_params,
     def precon(w):
         return kkt.solve_kkt(v, d, f, w, qn_compact=cq)
 
-    def bmult(px):
-        b0c, Zc, Mc = cq
-        out = b0c * px
-        if Zc is not None and Zc.shape[0] > 0:
-            out = out - matmul(
-                Zc.T, torch.linalg.solve_ex(Mc, matmul(Zc, px)).result)
-        return out
-
     msub = opts.gmres_subspace_size
     b = r  # solve_kkt solves K p = -b; GMRES runs on A = -K·K_B⁻¹
-    bnorm = torch.sqrt(tdot(b, b))
+    bsq = tdot(b, b)
+    bnorm = torch.sqrt(bsq)
     bsafe = torch.clamp(bnorm, min=1e-300)
     atol = opts.gmres_atol
     # β: the non-x energy of b, normalized
-    beta_n = (tdot(b, b) - dot(b.x, b.x)) / (bsafe * bsafe)
+    beta_n = (bsq - dot(b.x, b.x)) / (bsafe * bsafe)
 
     def embed(wx, a):
         scale = a / bsafe
@@ -388,7 +383,7 @@ def _fused_gmres(model: ModelFns, opts: FusedIPOptions, model_params,
         # z_j = -K_B⁻¹ v̂_j (transient); A v̂_j = K z_j = -v̂_j + N(H-B)z_j.x
         zj = precon(embed(W[j], al[j]))
         hv = model.hvp(model_params, v.x, v.z, v.zw, zj.x)
-        w = -W[j] + (hv - bmult(zj.x))
+        w = -W[j] + (hv - _bmult(cq, zj.x))
         a = -al[j]
         for i in range(j + 1):
             hij = dot(w, W[i]) + beta_n * a * al[i]

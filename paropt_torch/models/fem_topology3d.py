@@ -30,7 +30,8 @@ The element product K(E)·u has two layouts, chosen per multigrid level:
 
 ``layout="auto"`` takes the grid form where the node grid's minor dimension
 is at least `_GRID_MIN_NNZ`, a cutoff chosen from both forms' times on the
-H100 (chip_smoke.py phase 18 times both per level).
+H100 (chip_smoke.py phase 18 times both per level): every level, as
+measured there.
 """
 
 from __future__ import annotations
@@ -50,7 +51,10 @@ from .fem_topology import _Compliance, _interleave, _interleave_t
 __all__ = ["FEMTopology3D", "DMOFEMTopology3D", "hex_element_stiffness"]
 
 # layout="auto": the grid form where the node grid's minor dimension
-# (nnz = nez + 1) is at least this, the [ne, 24] form below it
+# (nnz = nez + 1) is at least this, the [ne, 24] form below it.  On the H100
+# the grid form won at every level of the 160x80x80 hierarchy (nnz 6 to 81),
+# 1.6-2.5x in device time with 17-18 kernels per product against 31-33
+# (chip_smoke.py phase 18; PERF.md), so every level takes it
 _GRID_MIN_NNZ = 2
 
 
@@ -176,8 +180,8 @@ def _add_corners(fe, shape):
     nex, ney, nez = fe.shape[-3:]
     out = fe.new_zeros(shape)
     for i, (a, b, c) in enumerate(_CORNERS3D):
-        out[..., :, a:a + nex, b:b + ney, c:c + nez] += fe[..., 3 * i:3 * i + 3,
-                                                           :, :, :]
+        out[..., :, a:a + nex, b:b + ney, c:c + nez] += \
+            fe[..., 3 * i:3 * i + 3, :, :, :]
     return out
 
 

@@ -40,6 +40,18 @@ def fields_of(obj):
     return out
 
 
+def jax_ip_state(s):
+    """A JAX InteriorPoint's state as the dict
+    `paropt_torch.convert.load_interior_point` takes."""
+    return {"vars": fields_of(s.vars),
+            "qn": None if s.qn is None else fields_of(s.qn),
+            "mu": s.mu, "rho_penalty": s.rho_penalty,
+            **{k: np.asarray(getattr(s, k)) for k in ("fobj", "c", "cw", "g",
+                                                       "A")},
+            **{k: getattr(s, k) for k in ("niter", "neval", "ngeval",
+                                          "nhvec")}}
+
+
 def assert_close(got, want, rtol, atol=0.0, name=""):
     np.testing.assert_allclose(np_of(got), np_of(want), rtol=rtol, atol=atol,
                                err_msg=name)

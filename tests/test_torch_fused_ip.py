@@ -263,9 +263,10 @@ def test_solve_counts_host_syncs():
 def test_unported_paths_raise_and_tf32_is_off():
     tp = TTopology(n=64, block=8, dtype=torch.float64, device="cpu")
     model = tip.model_from_problem(tp)
-    with pytest.raises(NotImplementedError):
-        tip.FusedIP(model, 64, 1, 8, 1,
-                    tip.FusedIPOptions(use_hvec_product=True))
+    # the Newton-Krylov phase is ported: its options build a solver
+    nk = tip.FusedIP(model, 64, 1, 8, 1,
+                     tip.FusedIPOptions(use_hvec_product=True))
+    assert nk.opts.gmres_subspace_size == 25
     tf = tip.FusedIP(model, 64, 1, 8, 1, tip.FusedIPOptions())
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
@@ -284,6 +285,7 @@ def test_import_loads_no_jax():
             "paropt_torch.models.topology, paropt_torch.mma, "
             "paropt_torch.optimizer, paropt_torch.tr, "
             "paropt_torch.models.fem_topology, paropt_torch.models.analytic, "
+            "paropt_torch.models.fem_topology3d, "
             "paropt_torch.utils.options, paropt_torch.ip, "
             "paropt_torch.problem, paropt_torch.utils.logging, "
             "paropt_torch.utils.chunked; "

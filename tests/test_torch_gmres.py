@@ -27,8 +27,8 @@ float64 on the CPU.
   fused step reports the arms it ran while returning the quasi-Newton step,
   as JAX does.
 
-JAX's `eval_hvec_product` retraces its jvp-of-grad on every call (60 ms
-each here); the JAX problems below jit it once, the same function.
+JAX's `eval_hvec_product` retraces its jvp-of-grad on every call (tens of
+ms each on a CPU); the JAX problems below jit it once, the same function.
 """
 
 import dataclasses
@@ -53,9 +53,8 @@ from paropt_torch.models.topology import SyntheticTopology as TTopology
 from paropt_torch.ops import kkt as tkkt
 from paropt_torch.ops import qn as tqn
 
-from ._torch_parity import (assert_close, assert_logs_alike,
-                            assert_same_ip_solve, fields_of, ip_side_by_side,
-                            np_of)
+from ._torch_parity import (assert_close, assert_same_ip_solve, fields_of,
+                            ip_side_by_side, jax_ip_state, np_of)
 
 torch.set_num_threads(1)
 
@@ -172,17 +171,6 @@ def test_host_nk_solve_matches(case, tmp_path):
     assert_gmres_traces_alike(tmp_path / "j", tmp_path / "t")
 
 
-def _jax_ip_state(s):
-    """A JAX InteriorPoint's state as the dict `load_interior_point` takes."""
-    return {"vars": fields_of(s.vars),
-            "qn": None if s.qn is None else fields_of(s.qn),
-            "mu": s.mu, "rho_penalty": s.rho_penalty,
-            **{k: np.asarray(getattr(s, k)) for k in ("fobj", "c", "cw", "g",
-                                                       "A")},
-            **{k: getattr(s, k) for k in ("niter", "neval", "ngeval",
-                                          "nhvec")}}
-
-
 def test_host_nk_rosenbrock_replays_every_gmres_solve():
     """Each GMRES solve of JAX's Rosenbrock NK run, replayed by the port
     from JAX's state: the same arms and Hessian-vector products, the step
@@ -192,7 +180,7 @@ def test_host_nk_rosenbrock_replays_every_gmres_solve():
     orig = jip.InteriorPoint._gmres_step
 
     def record(self, d, mu_j, compact, rtol):
-        state = _jax_ip_state(self)
+        state = jax_ip_state(self)
         p, iters = orig(self, d, mu_j, compact, rtol)
         calls.append((state, float(mu_j), rtol, p, iters))
         return p, iters
@@ -266,16 +254,19 @@ def fused_qp():
         JQP(n=20, ncon=2, seed=41),
         ta.RandomConvexQP(n=20, ncon=2, seed=41, dtype=F64, device="cpu"),
         20, 2, 10, **QP_FUSED)
-    steps, near = [], None
+    steps, near, after_nk = [], None, None
     for _ in range(200):
         js, ts = jf.step(js, jd, (), None), tf.step(ts, td, (), None)
         steps.append((int(js.gmres_iters), int(ts.gmres_iters),
                       np.asarray(js.vars.x), np_of(ts.vars.x)))
         if near is None and float(js.res_norm) < 1e-4:
             near = js
+        if after_nk is None and int(js.gmres_iters) > 0:
+            after_nk = js
         if bool(js.converged) and bool(ts.converged):
             break
-    return dict(jf=jf, tf=tf, jd=jd, steps=steps, near=near, js=js, ts=ts)
+    return dict(jf=jf, tf=tf, jd=jd, steps=steps, near=near,
+                after_nk=after_nk, js=js, ts=ts)
 
 
 def test_fused_nk_steps_match(fused_qp):
@@ -288,6 +279,11 @@ def test_fused_nk_steps_match(fused_qp):
     # one host read per step for the NK switch, one per line-search trial
     # and one for the solve's convergence check
     assert fused_qp["tf"].syncs.count >= len(steps)
+    # a JAX state just after an NK step converts whole, gmres_iters too
+    ja = fused_qp["after_nk"]
+    conv = convert.fused_state(fields_of(ja), device="cpu")
+    assert conv.gmres_iters.dtype == torch.int32
+    assert int(conv.gmres_iters) == int(ja.gmres_iters) > 0
 
 
 def _gmres_inputs(jfused_solver, jd, js):

@@ -36,8 +36,8 @@ from paropt_torch.models.topology import SyntheticTopology as TTopology
 from paropt_torch.problem import CSRSparseProblem
 
 from ._torch_parity import (assert_close, assert_logs_alike,
-                            assert_same_ip_solve, fields_of, ip_side_by_side,
-                            kkt_case, np_of)
+                            assert_same_ip_solve, ip_side_by_side,
+                            jax_ip_state, kkt_case, np_of)
 
 torch.set_num_threads(1)
 
@@ -212,17 +212,6 @@ def test_check_merit_func_gradient_matches(tmp_path):
         (tmp_path / "j").read_text().count("Merit function test") == 3
 
 
-def _jax_ip_state(s):
-    """A JAX InteriorPoint's state as the dict `load_interior_point` takes."""
-    return {"vars": fields_of(s.vars),
-            "qn": None if s.qn is None else fields_of(s.qn),
-            "mu": s.mu, "rho_penalty": s.rho_penalty,
-            **{k: np.asarray(getattr(s, k)) for k in ("fobj", "c", "cw", "g",
-                                                       "A")},
-            **{k: getattr(s, k) for k in ("niter", "neval", "ngeval",
-                                          "nhvec")}}
-
-
 def test_one_iteration_from_jax_state():
     """Six iterations of the JAX solve, then one more iteration of each
     package from that state (`convert.load_interior_point`): every IPVars
@@ -230,7 +219,7 @@ def test_one_iteration_from_jax_state():
     opts = {"output_file": None, "max_major_iters": 6}
     js = jip.InteriorPoint(ja.Rosenbrock(), opts)
     js.optimize()
-    state = _jax_ip_state(js)
+    state = jax_ip_state(js)
     one = dict(opts, max_major_iters=1,
                starting_point_strategy="no_start_strategy")
     jn = jip.InteriorPoint(ja.Rosenbrock(), one)
@@ -256,11 +245,15 @@ def _small():
 
 
 def test_gmres_phase_raises():
+    """The Newton-Krylov phase is ported (ROADMAP item 7): the options that
+    raised now solve, with GMRES steps (tests/test_torch_gmres.py holds the
+    phase against paropt_tpu)."""
     ip = tip.InteriorPoint(_small(), {"output_file": None,
                                       "use_hvec_product": True,
-                                      "gmres_subspace_size": 10})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ip.optimize()
+                                      "gmres_subspace_size": 10,
+                                      "nk_switch_tol": 1.0})
+    res = ip.optimize()
+    assert res["converged"] and ip.nhvec > 0
 
 
 def test_checkpoints_raise():
