@@ -19,13 +19,22 @@ Phases (any failure raises and exits nonzero without the final line):
    nvidia-smi's SM clock, power draw and power limit sampled after each;
    phi_gram must beat its unfused yardstick (quasi_def_apply at K = 21 plus
    torch.mm for the Gram matrix), timed beside it;
+3b. kernels with the instance axis (k solves run as one): each kernel's
+   instance-axis launch at kb = 4 over the main path's shapes in float32
+   (the apply at K = 1 and phi_gram as the factor setup calls it, vals
+   shared by the instances with stride 0) against the plain version
+   batched, bit for bit against 4 single launches, and at kb = 1 bit for
+   bit against the single launch; the device time of the instance-axis
+   launch, of 4 single launches and of the plain version batched, and the
+   bound (4 times the single call's bytes);
 4. slice: the fused interior-point solve of SyntheticTopology at n = 2^20
    in float32 (in-loop L-BFGS, msub 10, abs_res_tol 1e-6, no refinement),
    which must converge and must launch every kernel;
 5. cross-check: the same solve at n = 2^14 in float64 on the card (kernels)
    and on the host (plain versions) must agree in iteration count and
    objective;
-6. MMA at full width: FusedMMA (default options, 20 outer iterations) on
+6. MMA at full width: FusedMMA (default options, 10 outer iterations,
+   cut from 20 to keep the whole script inside its time limit) on
    FEMTopology(768, 384, cg_iters=25, solver="mgcg"), 294,912 design
    variables and 592,130 dofs, in float32 and then in float64.  Each run
    prints its iterations, final fobj, infeasibility, l1, linf, seconds per
@@ -43,8 +52,9 @@ Phases (any failure raises and exits nonzero without the final line):
    solver="mgcg"), float32, 60 outer iterations; fobj must fall in
    bench.py's band (0.10, 0.18) with infeasibility < 1e-8;
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
-   cg_iters 25) for 20 outer iterations and on DMOFEMTopology(12, 6,
-   cg_iters 120) for 15, once with CUDA tensors and once on the CPU: the
+   cg_iters 25) for 10 outer iterations and on DMOFEMTopology(12, 6,
+   cg_iters 120) for 8 (cut from 20 and 15), once with CUDA tensors and
+   once on the CPU: the
    same outer and inner iteration counts, fobj within 1e-9 relative;
 9. TR at full width: FusedTR (bench.py's TR options: 20 outer iterations,
    abs_res_tol 1e-6, tr_infeas_tol 1e-5, tr_l1_tol 0, tr_linfty_tol 1e-5;
@@ -60,7 +70,8 @@ Phases (any failure raises and exits nonzero without the final line):
    fall in bench.py's band (0.18, 0.30) with infeasibility < 1e-6, and of
    the kernels only the outer QN update's may launch (nwcon = 0);
 11. card against host in float64: FusedTR on SyntheticTopology(n = 2^14)
-   and on FEMTopology(12, 6, mgcg, cg_iters 25), 10 outer iterations each,
+   and on FEMTopology(12, 6, mgcg, cg_iters 25), 6 outer iterations each
+   (cut from 10),
    once with CUDA tensors and once on the CPU: the same outer and inner
    iteration counts, fobj within 1e-9 relative.
 
@@ -83,7 +94,8 @@ their logs under build/:
    iterations beside phase 4's, seconds and host reads per iteration, peak
    memory and one further iteration under torch.profiler;
 14. host MMA against FusedMMA: both on FEMTopology(768, 384, cg_iters=25,
-   solver="mgcg") in float64 for 5 outer iterations; fobj within 1e-9
+   solver="mgcg") in float64 for 3 outer iterations (cut from 5); fobj
+   within 1e-9
    relative, x within 1e-7, the same inner iterations, no kernel launched;
 15. card against host in float64: the host IP and TR on
    SyntheticTopology(n = 2^14) and the host MMA on FEMTopology(24, 12,
@@ -109,7 +121,8 @@ Phases 16-20 run the Newton-Krylov (GMRES) phase and the 3-D voxel FEM:
    solver="mgcg"), 1,024,000 design variables and 3,168,963 dofs, in
    float32.  First K(E)·u on each multigrid level in both layouts (device
    ms by CUDA events, median of 20; wall ms per call; kernels per call) and
-   the layout `auto` takes; then FusedMMA for 20 outer iterations with
+   the layout `auto` takes; then FusedMMA for 12 outer iterations (cut
+   from the flagship's 60) with
    phase 6's prints and checks (fobj < 0.5 of the start, infeasibility
    < 1e-6, a sync-free state solve, no phase-3 kernel).  A float64 state
    solve at the final design must reach ||K u - f|| / ||f|| < 1e-5 (its
@@ -119,10 +132,10 @@ Phases 16-20 run the Newton-Krylov (GMRES) phase and the 3-D voxel FEM:
    cg_iters=25, solver="mgcg"), float32, 40 outer iterations; fobj must
    fall in bench.py's band (0.08, 0.14) with infeasibility < 1e-8;
 20. card against host in float64 on FEMTopology3D(8, 4, 4, mgcg): FusedMMA
-   (10 outer iterations), the host MMA through the facade (equal log
-   columns iter and subiter) and FusedTR (5 outer iterations); FusedMMA
-   (12) on DMOFEMTopology3D(6, 3, 3, cg_iters=250): the same counts, fobj
-   within 1e-9 relative.
+   and the host MMA through the facade (6 outer iterations each, cut from
+   10; equal log columns iter and subiter) and FusedTR (3 outer
+   iterations, cut from 5); FusedMMA (6, cut from 12) on DMOFEMTopology3D(6, 3, 3,
+   cg_iters=250): the same counts, fobj within 1e-9 relative.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches in the phase-4 IP solve, as tr_launches in the phase-9 TR solve,
@@ -130,6 +143,50 @@ as host_tr_launches and host_ip_launches in phases 12 and 13, and as
 nk_launches in phase 16's host NK solve; its phase-3 error, times and
 bound; library_ms is null, since no single PyTorch call computes any of
 the three functions); the last line is {"ok": true, "device": {...}}.
+Phases 21-25 run the batched solves (`solve_batched`: k solves as one,
+every step's phases under torch.func.vmap, each kernel launched once per
+call with its instance axis):
+
+21. batched IP at full width: phase 4's problem and settings with k = 4
+   starts (x0 scaled by default_rng(0).uniform(0.5, 1.5)), in float32 and
+   in float64.  Every instance must converge below 1e-6 and every kernel
+   launch must be an instance-axis launch.  float32: one batched step must
+   launch each kernel as often as one single step; each instance is
+   printed beside its own single solve and beside a single solve from its
+   start moved by a relative 1e-7 (float32's roundoff floor: on this
+   problem roundoff alone moves a float32 solve by iterations and by
+   ~1e-4 in fobj, so float32 cannot hold one summation order to
+   another's).  float64: each instance within one iteration of its own
+   single solve and fobj within 1e-5 relative (the measured agreement,
+   printed, is ~1e-13).  It prints the wall time,
+   ms per batched step beside the single solves', host reads per step both
+   ways, peak memory, launches, and one float32 batched step under
+   torch.profiler;
+22. scripts/bench_batched.py's defaults: n = 4096, k = 32, tol 1e-4,
+   float32: the batched solve against 32 sequential single solves, wall
+   time both ways and their ratio (recorded, not claimed); the same
+   convergence flags and fobj within 1e-5;
+23. batched MMA at full width: FEMTopology(768, 384, mgcg), k = 4 starts
+   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 10 outer
+   iterations (a depth cut): infeasibility < 1e-6 for every instance, no
+   kernel launched, instance 1 printed beside its single solve and the
+   float32 floor.  float64, 3 outer iterations: instance 1 equal to its
+   own single solve in niter and fobj (1e-5 relative);
+24. batched TR with k = 4: phase 9's configuration (every instance
+   converged, all three kernels launched, every launch with the instance
+   axis, instance 2 equal to its single solve in niter and fobj within
+   1e-5), and bench.py's FEM 48x24 as examples/fem_topology_tr.py runs it
+   (only qn_roll_update): float32, 6 outer iterations, instance 2 printed
+   beside its single solve and the float32 floor; float64, 4 outer
+   iterations, instance 2 equal to its single solve (fobj within 1e-5);
+25. card against host in float64: the three batched solves at the CPU
+   tests' sizes (SyntheticTopology(256); FEM 8x4), depths cut (the IP to
+   60 steps, the MMA and TR to 6 and 4 outer iterations), on the card and
+   on the CPU: equal counts, fobj within 1e-12 relative per instance.
+
+The kernels line also carries each kernel's launches in phase 21
+(batched_launches) and in phase 24's n = 2^20 batch
+(batched_tr_launches), and its phase-3b error and times.
 Only torch and numpy are used.
 """
 
@@ -453,9 +510,9 @@ def _build_solver(torch, n, dtype, device, **extra):
     from paropt_torch.models.topology import SyntheticTopology
     from paropt_torch.ops import qn as qnmod
     prob = SyntheticTopology(n=n, block=BLOCK, dtype=dtype, device=device)
-    opts = ip_fused.FusedIPOptions(use_quasi_newton_update=True,
-                                   abs_res_tol=1e-6,
-                                   iterative_refinement_steps=0, **extra)
+    opts = ip_fused.FusedIPOptions(**dict(
+        dict(use_quasi_newton_update=True, abs_res_tol=1e-6,
+             iterative_refinement_steps=0), **extra))
     fused = ip_fused.FusedIP(ip_fused.model_from_problem(prob), prob.nvars,
                              prob.ncon, prob.nwcon, prob.nwblock, opts,
                              dtype=dtype)
@@ -476,6 +533,7 @@ def phase_slice(torch):
     fused.syncs.count = 0
     kernels.reset_launches()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = fused.solve(x0, data, (), qn0, None)
     torch.cuda.synchronize()
@@ -685,10 +743,10 @@ def phase_mma_crosscheck(torch):
     """FEM and DMO in float64, card against host."""
     from paropt_torch.models.fem_topology import DMOFEMTopology, FEMTopology
     cases = (
-        ("fem 24x12 mgcg", 20, lambda dev: FEMTopology(
+        ("fem 24x12 mgcg", 10, lambda dev: FEMTopology(
             24, 12, cg_iters=25, solver="mgcg", dtype=torch.float64,
             device=dev)),
-        ("dmo 12x6", 15, lambda dev: DMOFEMTopology(
+        ("dmo 12x6", 8, lambda dev: DMOFEMTopology(
             12, 6, cg_iters=120, dtype=torch.float64, device=dev)),
     )
     for name, iters, make in cases:
@@ -817,7 +875,7 @@ def phase_tr_crosscheck(torch):
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
             res, _ = _tr_solver(make(dev), "float64",
-                                tr_max_iterations=10).solve()
+                                tr_max_iterations=6).solve()
             out[dev] = (res["niter"], res["subiters"], res["fobj"])
             log(f"[tr crosscheck] {name} {dev}: outer {out[dev][0]}, inner "
                 f"{out[dev][1]}, fobj {out[dev][2]:.15e}, converged "
@@ -965,7 +1023,7 @@ def phase_host_mma(torch):
     tag = "[host mma 768x384 float64]"
     prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
                        dtype=torch.float64, device="cuda")
-    opts = {"algorithm": "mma", "mma_max_iterations": 5, "dtype": "float64"}
+    opts = {"algorithm": "mma", "mma_max_iterations": 3, "dtype": "float64"}
     opt, res, wall, launches, peak, _ = _host_route(
         torch, prob, opts, "chip_smoke_host.mma")
     mma = opt._inner
@@ -1257,9 +1315,12 @@ def _time_layouts(torch, prob):
         f"{smi_sample()}")
 
 
+MMA3D_ITERS = 12  # phase 18's depth, cut from the flagship's 60
+
+
 def phase_mma3d_full(torch):
     """Phase 18: FusedMMA on the JAX package's 1M-voxel flagship mesh in
-    float32, 20 outer iterations (cut from 60)."""
+    float32, MMA3D_ITERS outer iterations."""
     from paropt_torch.models.fem_topology3d import FEMTopology3D
     from paropt_torch.ops import kernels
     tag = "[mma3d {}x{}x{} float32]".format(*MESH3D)
@@ -1288,11 +1349,11 @@ def phase_mma3d_full(torch):
     log(f"{tag} one state solve ran under set_sync_debug_mode('error')")
 
     t1 = time.perf_counter()
-    warm = _mma_solver(torch, prob, 20, "float32")
+    warm = _mma_solver(torch, prob, MMA3D_ITERS, "float32")
     warm._step(warm._state0)
     torch.cuda.synchronize()
     log(f"{tag} warm-up outer iteration {time.perf_counter() - t1:.2f} s")
-    solver = _mma_solver(torch, prob, 20, "float32")
+    solver = _mma_solver(torch, prob, MMA3D_ITERS, "float32")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -1397,7 +1458,7 @@ def phase_3d_crosscheck(torch):
 
     def host_mma(dev):
         opt, res, _, _, _, path = _host_route(
-            torch, fem(dev), {"algorithm": "mma", "mma_max_iterations": 10,
+            torch, fem(dev), {"algorithm": "mma", "mma_max_iterations": 6,
                               "dtype": "float64"},
             f"chip_smoke_cross_mma3d_{dev}.log")
         rows = unpack_mma_output(str(path))
@@ -1406,16 +1467,16 @@ def phase_3d_crosscheck(torch):
 
     def fused_tr(dev):
         res, _ = _tr_solver(fem(dev), "float64",
-                            tr_max_iterations=5).solve()
+                            tr_max_iterations=3).solve()
         return res["fobj"], (res["niter"], res["subiters"])
 
-    cases = (("FusedMMA fem3d 8x4x4", fused_mma(fem, 10)),
+    cases = (("FusedMMA fem3d 8x4x4", fused_mma(fem, 6)),
              ("host MMA fem3d 8x4x4", host_mma),
              ("FusedTR fem3d 8x4x4", fused_tr),
              ("FusedMMA dmo3d 6x3x3", fused_mma(
                  lambda dev: DMOFEMTopology3D(6, 3, 3, cg_iters=250,
                                               dtype=torch.float64,
-                                              device=dev), 12)))
+                                              device=dev), 6)))
     for name, run in cases:
         out = {}
         for dev in ("cuda", "cpu"):
@@ -1432,6 +1493,514 @@ def phase_3d_crosscheck(torch):
               f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
 
 
+KB = 4
+
+
+def _starts(torch, x0, k, lo, hi, clip=None, seed=0):
+    """k starts: x0 scaled by default_rng(seed).uniform(lo, hi), clipped to
+    ``clip`` when given (numpy makes the scales, as the tests do)."""
+    import numpy as np
+    scale = np.random.default_rng(seed).uniform(lo, hi, (k, x0.shape[0]))
+    xs = x0.detach().cpu().double().numpy()[None, :] * scale
+    if clip is not None:
+        xs = np.clip(xs, *clip)
+    return torch.as_tensor(xs, dtype=x0.dtype, device=x0.device)
+
+
+def phase_kernels_batched(torch, timing):
+    """Phase 3b: each kernel's instance-axis launch at kb = 4 over the main
+    path's shapes in float32 against the plain version batched (max abs
+    error) and against 4 single launches (bit for bit), at kb = 1 against
+    the single launch (bit for bit); times of the instance-axis launch, of
+    4 single launches and of the plain version batched, and the bound (4
+    times the single call's bytes).  Adds the results to ``timing``."""
+    from paropt_torch.ops import kernels
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    W = N_MAIN // BLOCK
+    B = 2 * MSUB + 1
+    f32 = torch.float32
+
+    def held(name, got, want, singles, one, one_want):
+        err = max(rel_err(torch, g, w)[0] for g, w in zip(got, want))
+        rel = max(rel_err(torch, g, w)[1] for g, w in zip(got, want))
+        check(rel <= RTOL["float32"], f"{name} kb={KB}: relative error "
+              f"{rel:.3e} > {RTOL['float32']:.0e}")
+        for i, single in enumerate(singles):
+            check(all(torch.equal(g[i], s) for g, s in zip(got, single)),
+                  f"{name} kb={KB}: instance {i} differs from its single "
+                  f"launch")
+        check(all(torch.equal(g[0], s) for g, s in zip(one, one_want)),
+              f"{name} kb=1: differs from the single launch")
+        log(f"[kernels kb={KB}] {name}: max abs err {err:.3e} against the "
+            f"plain version batched; {KB} instances and kb=1 bitwise equal "
+            f"to single launches")
+        return err
+
+    def timed(name, batched, singles, plain, nbytes, flops):
+        ms = cuda_ms(torch, batched)
+        sms = cuda_ms(torch, singles)
+        pms = cuda_ms(torch, plain)
+        bms, by = bound_ms(nbytes, flops)
+        log(f"[kernels kb={KB}] {name}: {ms:.4f} ms instance-axis launch, "
+            f"{sms:.4f} ms {KB} single launches, {pms:.4f} ms plain "
+            f"batched; bound {bms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB), "
+            f"{100 * bms / ms:.1f}% of bound; clocks.sm, power.draw, "
+            f"power.limit: {smi_sample()}")
+        return {"batched_ms": ms, "singles_ms": sms, "batched_plain_ms": pms,
+                "batched_bound_ms": bms}
+
+    buf = torch.randn((KB, 2 * MSUB, N_MAIN), device="cuda", dtype=f32,
+                      generator=gen)
+    s = torch.randn((KB, N_MAIN), device="cuda", dtype=f32, generator=gen)
+    y = torch.randn((KB, N_MAIN), device="cuda", dtype=f32, generator=gen)
+    upd = torch.tensor([True, False, True, True], device="cuda")
+    got = kernels.qn_roll_update_batched(buf, s, y, upd)
+    err = held("qn_roll_update", got,
+               kernels.qn_roll_update_plain_batched(buf, s, y, upd),
+               [kernels.qn_roll_update(buf[i], s[i], y[i], upd[i])
+                for i in range(KB)],
+               kernels.qn_roll_update_batched(buf[:1], s[:1], y[:1],
+                                              upd[:1]),
+               kernels.qn_roll_update(buf[0], s[0], y[0], upd[0]))
+    r = timing["qn_roll_update"]
+    r["batched_max_abs_err"] = err
+    r.update(timed(
+        "qn_roll_update", lambda: kernels.qn_roll_update_batched(
+            buf, s, y, upd),
+        lambda: [kernels.qn_roll_update(buf[i], s[i], y[i], upd[i])
+                 for i in range(KB)],
+        lambda: kernels.qn_roll_update_plain_batched(buf, s, y, upd),
+        _nbytes(buf, s, y, upd, *got), KB * 4 * 2 * MSUB * N_MAIN))
+    del buf, s, y, got
+
+    # the quasi-definite apply at K = 1 with vals shared (stride 0), as a
+    # batched solve passes it
+    per = [_qd_inputs(torch, gen, 1, BLOCK, W, f32) for _ in range(KB)]
+    ops = [torch.stack([p[j] for p in per]) for j in range(5)]
+    ops[2] = ops[2][0].expand(KB, BLOCK, W)
+    got = kernels.quasi_def_apply_batched(*ops)
+    err = held("quasi_def_apply K=1", got,
+               kernels.quasi_def_apply_plain_batched(*ops),
+               [kernels.quasi_def_apply(*(o[i] for o in ops))
+                for i in range(KB)],
+               kernels.quasi_def_apply_batched(*(o[:1] for o in ops)),
+               kernels.quasi_def_apply(*(o[0] for o in ops)))
+    r = timing["quasi_def_apply"]
+    r["batched_max_abs_err"] = err
+    r.update(timed(
+        "quasi_def_apply K=1",
+        lambda: kernels.quasi_def_apply_batched(*ops),
+        lambda: [kernels.quasi_def_apply(*(o[i] for o in ops))
+                 for i in range(KB)],
+        lambda: kernels.quasi_def_apply_plain_batched(*ops),
+        _nbytes(ops[0], ops[1], ops[2][0], ops[3], ops[4], *got),
+        KB * W * (6 * BLOCK + 2)))
+
+    # phi_gram as the factor setup calls it: [Z_qn; A] as two row blocks,
+    # bw = 0, vals shared
+    per = [_qd_inputs(torch, gen, B, BLOCK, W, f32) for _ in range(KB)]
+    dinv, cwinv, vals, bx = (torch.stack([p[j] for p in per])
+                             for j in range(4))
+    vals = vals[0].expand(KB, BLOCK, W)
+    args = (dinv, cwinv, vals, bx[:, :2 * MSUB], None, bx[:, 2 * MSUB:])
+
+    def pick(i):
+        return [None if a is None else a[i] for a in args]
+
+    got = kernels.phi_gram_batched(*args)
+    err = held("phi_gram B=21", got, kernels.phi_gram_plain_batched(*args),
+               [kernels.phi_gram(*pick(i)) for i in range(KB)],
+               kernels.phi_gram_batched(*(None if a is None else a[:1]
+                                          for a in args)),
+               kernels.phi_gram(*pick(0)))
+    r = timing["phi_gram"]
+    r["batched_max_abs_err"] = err
+    r.update(timed(
+        "phi_gram B=21", lambda: kernels.phi_gram_batched(*args),
+        lambda: [kernels.phi_gram(*pick(i)) for i in range(KB)],
+        lambda: kernels.phi_gram_plain_batched(*args),
+        _nbytes(dinv, cwinv, vals[0], bx, *got),
+        KB * (2 * B * B * BLOCK * W + B * W * (6 * BLOCK + 2))))
+
+
+def _perturbed(torch, x, seed=5):
+    """x with every entry moved by a relative 1e-7 (uniform in [0, 1e-7)):
+    a start that differs from x by roundoff, to measure how far a float32
+    solve moves under roundoff alone."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return x * (1 + 1e-7 * torch.rand(x.shape, generator=g, device=x.device,
+                                      dtype=x.dtype))
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def phase_batched_ip(torch):
+    """Batched IP at full width: k = 4 starts of the main path's problem.
+    float32 (the main path): every instance converges below 1e-6, every
+    launch has the instance axis and one batched step launches each kernel
+    as often as one single step; each instance is printed beside its own
+    single solve and beside a single solve from its start moved by 1e-7
+    (float32's roundoff floor on this solve).  float64 at the same width:
+    each instance within one iteration of its own single solve and fobj
+    within 1e-5.  Returns the float32 batch's launches."""
+    from paropt_torch import ip_fused as tip
+    from paropt_torch.ops import kernels
+    from paropt_torch.tree import take
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        tag = f"[batched ip k={KB} n={N_MAIN} {name}]"
+        fused, data, x0, qn0 = _build_solver(torch, N_MAIN, dtype, "cuda")
+        x0s = _starts(torch, x0, KB, 0.5, 1.5)
+        fused.solve_batched(x0s, data, (), qn0, max_iters=2)    # warm-up
+        singles = []
+        for i in range(KB):
+            fused.syncs.count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = fused.solve(x0s[i], data, (), qn0)
+            torch.cuda.synchronize()
+            singles.append((int(st.k), float(st.fobj),
+                            time.perf_counter() - t0, fused.syncs.count,
+                            bool(st.converged)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused.syncs.count = 0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = fused.solve_batched(x0s, data, (), qn0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        batched = dict(kernels.BATCHED_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = int(st.k.max()) + 1          # the converging turn freezes
+        reads = fused.syncs.count
+        s_steps = sum(k + 1 for k, *_ in singles)
+        s_reads = sum(r for *_, r, _ in singles)
+        s_wall = sum(t for _, _, t, _, _ in singles)
+        fobj = st.fobj.tolist()
+        log(f"{tag} iterations {st.k.tolist()} (single solves "
+            f"{[k for k, *_ in singles]}), converged "
+            f"{st.converged.tolist()}, res_norm "
+            f"{[f'{r:.3e}' for r in st.res_norm.tolist()]}")
+        log(f"{tag} fobj {[f'{f:.12e}' for f in fobj]} (single "
+            f"{[f'{f:.12e}' for _, f, *_ in singles]})")
+        log(f"{tag} wall {wall:.4f} s = {wall / steps * 1e3:.2f} ms per "
+            f"batched step ({steps} steps); {KB} single solves "
+            f"{s_wall:.4f} s = {s_wall / s_steps * 1e3:.2f} ms per step; "
+            f"host reads {reads / steps:.2f} per batched step, "
+            f"{s_reads / s_steps:.2f} per single step; peak memory "
+            f"{peak:.3f} GiB")
+        log(f"{tag} kernel launches {launches}, of them instance-axis "
+            f"{batched}")
+        check(bool(torch.all(st.converged)), "a batched instance did not "
+              "converge")
+        check(float(torch.max(st.res_norm)) < 1e-6,
+              f"res_norm {float(torch.max(st.res_norm)):.3e} >= 1e-6")
+        check(torch.isfinite(st.vars.x).all().item()
+              and st.vars.x.shape == (KB, N_MAIN), "bad final x")
+        for nm, count in launches.items():
+            check(count > 0 and batched[nm] == count,
+                  f"kernel {nm}: {count} launches, {batched[nm]} with the "
+                  f"instance axis")
+        if dtype == torch.float64:
+            for i, (k, f, _, _, conv) in enumerate(singles):
+                check(conv, f"single solve {i} did not converge")
+                check(abs(int(st.k[i]) - k) <= 1, f"instance {i}: "
+                      f"{int(st.k[i])} iterations against {k} single")
+                check(_rel(fobj[i], f) <= 1e-5, f"instance {i}: fobj "
+                      f"{fobj[i]!r} against {f!r}")
+            continue
+        # float32: the roundoff floor, and one profiled batched step
+        moved = [fused.solve(_perturbed(torch, x0s[i]), data, (), qn0)
+                 for i in range(KB)]
+        log(f"{tag} against the single solves: iterations "
+            f"{[int(st.k[i]) - k for i, (k, *_) in enumerate(singles)]}, "
+            f"fobj rel {[f'{_rel(fobj[i], f):.1e}' for i, (_, f, *_) in enumerate(singles)]}; "
+            f"single solves from starts moved by 1e-7: iterations "
+            f"{[int(m.k) - k for m, (k, *_) in zip(moved, singles)]}, fobj "
+            f"rel {[f'{_rel(float(m.fobj), f):.1e}' for m, (_, f, *_) in zip(moved, singles)]}")
+        out = batched
+        mid = fused.solve_batched(x0s, data, (), qn0, max_iters=10)
+        run = tip._Run(fused.syncs, batched=True)
+
+        def step():
+            return tip._fused_step(fused.model, fused.opts, mid, data, (),
+                                   None, run=run)
+
+        window, nops, busy, _ = _profile_call(torch, step)
+        _log_busy(tag, "one batched step (from step 10)", window, nops, busy)
+        kernels.reset_launches()
+        step()
+        per_batched = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        fused.step(take(mid, 0), data, (), None)
+        per_single = dict(kernels.LAUNCHES)
+        log(f"{tag} launches in one step: batched {per_batched}, single "
+            f"{per_single}")
+        check(per_batched == per_single, "a batched step launches the "
+              "kernels a different number of times than a single step")
+    return out
+
+
+def phase_batched_small(torch):
+    """scripts/bench_batched.py's defaults (n = 4096, k = 32, tol 1e-4,
+    float32 on the card): the batched solve against 32 sequential single
+    solves, wall time both ways.  The ratio is recorded, not claimed."""
+    n, k, tol = 4096, 32, 1e-4
+    tag = f"[batched ip k={k} n={n} float32]"
+    fused, data, x0, qn0 = _build_solver(torch, n, torch.float32, "cuda",
+                                         abs_res_tol=tol,
+                                         iterative_refinement_steps=1)
+    x0s = _starts(torch, x0, k, 0.5, 1.5)
+    fused.solve_batched(x0s, data, (), qn0, max_iters=2)    # warm-up
+    fused.solve(x0s[0], data, (), qn0, max_iters=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = fused.solve_batched(x0s, data, (), qn0)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = [fused.solve(x0s[i], data, (), qn0) for i in range(k)]
+    torch.cuda.synchronize()
+    ts = time.perf_counter() - t0
+    conv_s = [bool(s.converged) for s in seq]
+    iters_s = [int(s.k) for s in seq]
+    log(f"{tag} batched {tb:.3f} s (converged "
+        f"{int(st.converged.sum())}/{k}, iterations max "
+        f"{int(st.k.max())}) vs {k} sequential {ts:.3f} s (converged "
+        f"{sum(conv_s)}/{k}, iterations max {max(iters_s)}, total "
+        f"{sum(iters_s)}): sequential / batched = {ts / tb:.2f}")
+    check(torch.isfinite(st.fobj).all().item(), "non-finite batched fobj")
+    check(st.converged.tolist() == conv_s,
+          "batched and sequential solves disagree on convergence")
+    for i, s in enumerate(seq):
+        check(abs(float(st.fobj[i]) - float(s.fobj))
+              <= 1e-5 * abs(float(s.fobj)),
+              f"instance {i}: fobj {float(st.fobj[i])!r} against "
+              f"{float(s.fobj)!r}")
+
+
+def _mma_single(solver, x):
+    import dataclasses
+    return solver.solve(dataclasses.replace(solver._state0, x=x, x1=x, x2=x))
+
+
+def _tr_single(solver, x):
+    import dataclasses
+    f0, c0, cw0 = solver._ev((), x)
+    g0, A0 = solver._gr((), x)
+    return solver.solve(dataclasses.replace(
+        solver._state0, xk=x, fk=f0, ck=c0, gk=g0, Ak=A0, cwk=cw0))
+
+
+def _batch_and_one(torch, tag, make_solver, single, x0s, i):
+    """A batched solve of the starts x0s and the single solve of start i:
+    (batched results, states, single result, single state, the batch's
+    launches and instance-axis launches), with times and reads printed."""
+    from paropt_torch.ops import kernels
+    solver = make_solver()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, states = solver.solve_batched(x0s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    one = make_solver()
+    t0 = time.perf_counter()
+    r1, s1 = single(one, x0s[i])
+    torch.cuda.synchronize()
+    ws = time.perf_counter() - t0
+    niter = int(res["niter"].max())
+    log(f"{tag} outer iterations {res['niter'].tolist()}, inner "
+        f"{states.subiters.tolist()}, converged "
+        f"{res['converged'].tolist()}, fobj {res['fobj'].tolist()}, infeas "
+        f"{res['infeas'].tolist()}, linf {res['linfty'].tolist()}")
+    log(f"{tag} wall {wall:.3f} s = {wall / niter:.4f} s per batched outer "
+        f"iteration ({solver.syncs.count / niter:.1f} host reads each); "
+        f"instance {i} alone {ws / max(r1['niter'], 1):.4f} s per outer "
+        f"iteration ({one.syncs.count / max(r1['niter'], 1):.1f} reads), "
+        f"niter {r1['niter']}, inner {int(s1.subiters)}, fobj "
+        f"{r1['fobj']:.12e}; peak memory {peak:.3f} GiB; launches "
+        f"{launches}, of them instance-axis {batched}")
+    import numpy as np
+    check(np.isfinite(res["fobj"]).all(), "non-finite fobj")
+    check(launches == batched, "a launch without the instance axis")
+    return res, states, r1, launches
+
+
+def _held(tag, res, r1, i, rtol):
+    check(int(res["niter"][i]) == r1["niter"], f"{tag} instance {i}: "
+          f"{res['niter'][i]} outer iterations against {r1['niter']}")
+    check(_rel(float(res["fobj"][i]), r1["fobj"]) <= rtol,
+          f"{tag} instance {i}: fobj {float(res['fobj'][i])!r} against "
+          f"{r1['fobj']!r}")
+    log(f"{tag} instance {i} equals its single solve: niter "
+        f"{r1['niter']}, fobj rel {_rel(float(res['fobj'][i]), r1['fobj']):.1e}")
+
+
+def _f32_floor(tag, res, r1, moved, i):
+    log(f"{tag} instance {i} against its single solve: niter "
+        f"{int(res['niter'][i]) - r1['niter']:+d}, fobj rel "
+        f"{_rel(float(res['fobj'][i]), r1['fobj']):.1e}; the single solve "
+        f"from its start moved by 1e-7: niter {moved['niter'] - r1['niter']:+d}"
+        f", fobj rel {_rel(moved['fobj'], r1['fobj']):.1e}")
+
+
+def phase_batched_mma(torch):
+    """Batched FusedMMA at full width: k = 4 starts on FEMTopology(768,
+    384, mgcg), clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32,
+    10 outer iterations (a depth cut): infeasibility < 1e-6 for every
+    instance, no kernel launched, instance 1 printed beside its single
+    solve and float32's roundoff floor.  float64, 3 outer iterations:
+    instance 1 equals its single solve (niter, fobj within 1e-5)."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    for dtype, iters in ((torch.float32, 10), (torch.float64, 3)):
+        name = str(dtype).split(".")[1]
+        tag = f"[batched mma k={KB} 768x384 {name}]"
+        prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
+                           dtype=dtype, device="cuda")
+        x0, _, _ = prob.get_vars_and_bounds()
+        x0s = _starts(torch, x0, KB, 0.6, 1.4, clip=(0.05, 0.95))
+
+        def make():
+            return _mma_solver(torch, prob, iters, name)
+
+        res, _, r1, launches = _batch_and_one(torch, tag, make, _mma_single,
+                                              x0s, 1)
+        check((res["infeas"] < 1e-6).all(), f"infeas {res['infeas']} >= "
+              f"1e-6")
+        check(not any(launches.values()),
+              f"a phase-3 kernel ran on the MMA/FEM path: {launches}")
+        if dtype == torch.float64:
+            _held(tag, res, r1, 1, 1e-5)
+        else:
+            moved, _ = _mma_single(make(), _perturbed(torch, x0s[1]))
+            _f32_floor(tag, res, r1, moved, 1)
+
+
+def phase_batched_tr(torch):
+    """Batched FusedTR with k = 4: phase 9's configuration (n = 2^20,
+    float32: every instance converged, all three kernels launched, each
+    with the instance axis, instance 2 equal to its single solve in niter
+    and fobj within 1e-5), and bench.py's FEM 48x24 as
+    examples/fem_topology_tr.py runs it (float32, 6 outer iterations:
+    only qn_roll_update, instance 2 printed beside its single solve and
+    float32's roundoff floor; float64, 4 outer iterations: instance 2
+    equal to its single solve, fobj within 1e-5).  Returns the n = 2^20
+    batch's launches."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    tag = f"[batched tr k={KB} n={N_MAIN} float32]"
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    x0, _, _ = prob.get_vars_and_bounds()
+    res, _, r2, out = _batch_and_one(
+        torch, tag, lambda: _tr_solver(prob, "float32"), _tr_single,
+        _starts(torch, x0, KB, 0.5, 1.5), 2)
+    check(res["converged"].all() and (res["infeas"] < 1e-5).all()
+          and (res["linfty"] < 1e-5).all(),
+          "a batched TR instance did not converge")
+    for k, count in out.items():
+        check(count > 0, f"kernel {k} was not launched")
+    _held(tag, res, r2, 2, 1e-5)
+    for dtype, iters in ((torch.float32, 6), (torch.float64, 4)):
+        name = str(dtype).split(".")[1]
+        tag = f"[batched tr k={KB} fem 48x24 {name}]"
+        prob = FEMTopology(48, 24, cg_iters=25, solver="mgcg", dtype=dtype,
+                           device="cuda")
+        x0, _, _ = prob.get_vars_and_bounds()
+        x0s = _starts(torch, x0, KB, 0.6, 1.4, clip=(0.05, 0.95))
+
+        def make():
+            return _tr_solver(prob, name, tr_max_iterations=iters)
+
+        res, _, r2, launches = _batch_and_one(torch, tag, make, _tr_single,
+                                              x0s, 2)
+        check(launches["qn_roll_update"] > 0
+              and launches["quasi_def_apply"] == launches["phi_gram"] == 0,
+              f"unexpected launches on the FEM TR path: {launches}")
+        if dtype == torch.float64:
+            _held(tag, res, r2, 2, 1e-5)
+        else:
+            moved, _ = _tr_single(make(), _perturbed(torch, x0s[2]))
+            _f32_floor(tag, res, r2, moved, 2)
+    return out
+
+
+def phase_batched_crosscheck(torch):
+    """The three batched solves at the CPU tests' sizes in float64 (depths
+    cut: the IP to 60 steps, the MMA and TR to 6 and 4 outer iterations),
+    on the card and on the host: equal counts, fobj within 1e-12
+    relative, per instance."""
+    from paropt_torch import ip_fused as tip
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.mma import FusedMMA
+    from paropt_torch.ops import qn as qnmod
+    from paropt_torch.tr import FusedTR
+    f64 = torch.float64
+
+    def ip(dev):
+        prob = SyntheticTopology(n=256, block=8, dtype=f64, device=dev)
+        fused = tip.FusedIP(tip.model_from_problem(prob), 256, 1, prob.nwcon,
+                            1, tip.FusedIPOptions(
+                                use_quasi_newton_update=True,
+                                abs_res_tol=1e-5, max_major_iters=60),
+                            dtype=f64)
+        data, x0 = tip.data_template_from_problem(prob, dtype=f64)
+        st = fused.solve_batched(_starts(torch, x0, 3, 0.4, 1.6), data, (),
+                                 qnmod.qn_init(5, 256, dtype=f64,
+                                               device=dev))
+        return st.k.tolist(), st.fobj.tolist()
+
+    def fem(dev):
+        return FEMTopology(8, 4, cg_iters=200, dtype=f64, device=dev)
+
+    def mma(dev):
+        prob = fem(dev)
+        x0, _, _ = prob.get_vars_and_bounds()
+        res, st = FusedMMA(prob, {"mma_max_iterations": 6,
+                                  "mma_output_file": None}).solve_batched(
+            _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95)))
+        return ([*res["niter"].tolist(), *st.subiters.tolist()],
+                res["fobj"].tolist())
+
+    def tr(dev):
+        prob = fem(dev)
+        x0, _, _ = prob.get_vars_and_bounds()
+        res, st = FusedTR(prob, {
+            "tr_output_file": None, "output_file": None,
+            "tr_max_iterations": 4, "abs_res_tol": 1e-7,
+            "tr_infeas_tol": 1e-5, "tr_l1_tol": 0.0,
+            "tr_linfty_tol": 1e-5}).solve_batched(
+            _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95), seed=1))
+        return ([*res["niter"].tolist(), *st.subiters.tolist()],
+                res["fobj"].tolist())
+
+    for name, fn in (("ip synthetic 256", ip), ("mma fem 8x4", mma),
+                     ("tr fem 8x4", tr)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = fn(dev)
+            log(f"[batched crosscheck] {name} {dev}: counts {out[dev][0]}, "
+                f"fobj {[f'{f:.15e}' for f in out[dev][1]]} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        (kc, fc), (kh, fh) = out["cuda"], out["cpu"]
+        check(kc == kh, f"{name}: counts differ: cuda {kc}, cpu {kh}")
+        for a, b in zip(fc, fh):
+            check(abs(a - b) <= 1e-12 * abs(b),
+                  f"{name}: objectives differ: cuda {a!r}, cpu {b!r}")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -1440,10 +2009,11 @@ def main():
     phase_device(torch)
     phase_build()
     timing = phase_kernels(torch)
+    phase_kernels_batched(torch, timing)
     launches, ip_iters = phase_slice(torch)
     phase_crosscheck(torch)
     for dtype in (torch.float32, torch.float64):
-        phase_mma_full(torch, dtype)
+        phase_mma_full(torch, dtype, iters=10)
     phase_mma_bench(torch)
     phase_mma_crosscheck(torch)
     tr_launches, tr_niter, tr_fobj = phase_tr_full(torch)
@@ -1458,6 +2028,11 @@ def main():
     phase_mma3d_full(torch)
     phase_mma3d_bench(torch)
     phase_3d_crosscheck(torch)
+    batched_launches = phase_batched_ip(torch)
+    phase_batched_small(torch)
+    phase_batched_mma(torch)
+    batched_tr_launches = phase_batched_tr(torch)
+    phase_batched_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -1467,9 +2042,14 @@ def main():
                      "host_tr_launches": host_tr_launches[name],
                      "host_ip_launches": host_ip_launches[name],
                      "nk_launches": nk_launches[name],
+                     "batched_launches": batched_launches[name],
+                     "batched_tr_launches": batched_tr_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     **{key: r[key] for key in (
+                         "batched_max_abs_err", "batched_ms", "singles_ms",
+                         "batched_plain_ms", "batched_bound_ms")}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

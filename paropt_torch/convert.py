@@ -7,7 +7,10 @@ Python values for the static fields, and nested dicts for nested states
 step of each package (an IP step, an MMA or a TR outer iteration) start from
 the same mid-trajectory state.  The ``load_*`` functions do the same for
 the host-loop solvers: they write a JAX solver's state into a port solver
-object of the same configuration.  No jax is imported here: a JAX
+object of the same configuration.  A batched state (JAX's
+``solve_batched`` result, every leaf with a leading k axis) converts whole,
+with the same leading axis, and `tree.take(state, i)` is its instance i.
+No jax is imported here: a JAX
 bfloat16 array arrives as numpy's ``bfloat16`` extension dtype and is
 reinterpreted bit for bit.
 """

@@ -53,20 +53,23 @@ __device__ __forceinline__ void block_sum2(TA& a, TA& b, TA* red) {
   __syncthreads();  // `red` may be reused right after
 }
 
-// out[i] = sum_p partials[p, i], one warp per output, lanes striding over p
-// and a fixed shuffle tree: the same inputs always give the same bits,
-// whatever the grid (one block, or one warp per output).
+// out[b, i] = sum_p partials[b, p, i] for ninst instances b, one warp per
+// output, lanes striding over p and a fixed shuffle tree: the same inputs
+// always give the same bits, whatever the grid (one block, or one warp per
+// output) and whatever the instance count.
 template <typename TA>
 __global__ void reduce_partials_kernel(const TA* __restrict__ partials,
                                        TA* __restrict__ out, int nparts,
-                                       int nout) {
+                                       int nout, int ninst) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int warp = blockIdx.x * nwarps + (threadIdx.x >> 5);
-  for (int i = warp; i < nout; i += gridDim.x * nwarps) {
+  for (int i = warp; i < nout * ninst; i += gridDim.x * nwarps) {
+    const int b = i / nout;
+    const TA* pb = partials + static_cast<size_t>(b) * nparts * nout;
     TA acc = TA(0);
     for (int p = lane; p < nparts; p += 32) {
-      acc += partials[static_cast<size_t>(p) * nout + i];
+      acc += pb[static_cast<size_t>(p) * nout + (i - b * nout)];
     }
     for (int off = 16; off > 0; off >>= 1) {
       acc += __shfl_down_sync(kFullMask, acc, off);

@@ -20,6 +20,13 @@
 // partial array, and summed in index order by a one-block second pass:
 // no atomics, so a run repeats bit for bit.
 //
+// Instance axis: a batched call (k solves run as one, `solve_batched`)
+// launches one grid with blockIdx.y the instance.  Each input has its own
+// instance stride in elements (0 for an operand the instances share); the
+// outputs and partials are laid out [kb, ...].  An instance's blocks do
+// exactly what a single launch's do, so a launch over kb instances equals
+// kb single launches bit for bit.
+//
 // Narrow storage: s and y arrive already quantized to the buffer type (the
 // wrapper casts them, as the JAX wrapper does) and the dots accumulate in
 // f32 from the quantized values.
@@ -37,10 +44,17 @@ __global__ void __launch_bounds__(kRollThreads)
 qn_roll_kernel(const TS* __restrict__ buf, const TS* __restrict__ s,
                const TS* __restrict__ y, const bool* __restrict__ upd,
                TS* __restrict__ out, TA* __restrict__ partials, int m,
-               long long n) {
+               long long n, long long sbuf, long long ss, long long sy,
+               long long supd) {
   __shared__ TA red[2 * (kRollThreads / 32)];
-  const bool do_upd = *upd;
   const int rows = 2 * m;
+  const size_t inst = blockIdx.y;
+  buf += inst * sbuf;
+  s += inst * ss;
+  y += inst * sy;
+  out += inst * rows * n;
+  partials += inst * gridDim.x * rows * 2;
+  const bool do_upd = upd[inst * supd];
   const long long base = static_cast<long long>(blockIdx.x) * kRollTile;
 
   long long col[kRollCols];
@@ -82,20 +96,26 @@ qn_roll_kernel(const TS* __restrict__ buf, const TS* __restrict__ s,
   }
 }
 
+// kb instances: the grid is (nblocks, kb); out [kb, 2m, n], partials
+// [kb, nblocks, 2m, 2], dots [kb, 2m, 2]
 template <typename TS, typename TA>
 int launch_qn_roll(const void* buf, const void* s, const void* y,
                    const void* upd, void* out, void* partials, void* dots,
-                   int m, long long n, int nblocks, void* stream) {
+                   int m, long long n, int nblocks, int kb, long long sbuf,
+                   long long ss, long long sy, long long supd,
+                   void* stream) {
+  if (kb < 1 || kb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qn_roll_kernel<TS, TA><<<nblocks, kRollThreads, 0, st>>>(
+  qn_roll_kernel<TS, TA><<<dim3(nblocks, kb), kRollThreads, 0, st>>>(
       static_cast<const TS*>(buf), static_cast<const TS*>(s),
       static_cast<const TS*>(y), static_cast<const bool*>(upd),
-      static_cast<TS*>(out), static_cast<TA*>(partials), m, n);
+      static_cast<TS*>(out), static_cast<TA*>(partials), m, n, sbuf, ss, sy,
+      supd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials_kernel<TA><<<1, 256, 0, st>>>(
       static_cast<const TA*>(partials), static_cast<TA*>(dots), nblocks,
-      4 * m);
+      4 * m, kb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,7 +127,17 @@ int launch_qn_roll(const void* buf, const void* s, const void* y,
       void* out, void* partials, void* dots, int m, long long n,           \
       int nblocks, void* stream) {                                         \
     return paropt::launch_qn_roll<TS, TA>(buf, s, y, upd, out, partials,   \
-                                          dots, m, n, nblocks, stream);    \
+                                          dots, m, n, nblocks, 1, 0, 0, 0, \
+                                          0, stream);                      \
+  }                                                                         \
+  extern "C" int paropt_qn_roll_update_batched_##suffix(                    \
+      const void* buf, const void* s, const void* y, const void* upd,      \
+      void* out, void* partials, void* dots, int m, long long n,           \
+      int nblocks, int kb, long long sbuf, long long ss, long long sy,     \
+      long long supd, void* stream) {                                      \
+    return paropt::launch_qn_roll<TS, TA>(buf, s, y, upd, out, partials,   \
+                                          dots, m, n, nblocks, kb, sbuf,   \
+                                          ss, sy, supd, stream);           \
   }
 
 PAROPT_QN_ROLL_ENTRY(f32, float, float)

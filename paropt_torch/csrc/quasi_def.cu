@@ -55,6 +55,16 @@
 //   and reduce_partials_kernel sums those in index order: no atomics, so a
 //   run repeats bit for bit.
 //
+// Instance axis (both kernels): a batched call (k solves run as one,
+// `solve_batched`) launches one grid with blockIdx.y the instance.  Every
+// input has an instance stride in elements, 0 for an operand the instances
+// share (vals, when only the right-hand sides differ); the outputs and
+// partials are laid out [kb, ...].  An instance's blocks do exactly what a
+// single launch's do (phi_gram keeps the single launch's plan and
+// persistent grid per instance), so a launch over kb instances equals kb
+// single launches bit for bit.  The `InstStrides` struct carries the
+// strides.
+//
 // The Gram stays on the CUDA cores in full precision: TF32 is off in all
 // solver code, and its FLOPs sit under the memory bound anyway.
 //
@@ -68,6 +78,11 @@ namespace paropt {
 // ---------------------------------------------------------------------------
 // quasi_def_apply
 // ---------------------------------------------------------------------------
+
+// instance strides, in elements, of the kernels' inputs (0 = shared)
+struct InstStrides {
+  long long dinv, cwinv, vals, bx, bx2, bw;
+};
 
 constexpr int kQdThreads = 128;
 // k up to this keeps a column's rows in registers
@@ -94,8 +109,17 @@ __global__ void __launch_bounds__(kQdThreads)
 quasi_def_kernel(const T* __restrict__ dinv, const T* __restrict__ cwinv,
                  const T* __restrict__ vals, const T* __restrict__ bx,
                  const T* __restrict__ bw, T* __restrict__ yx,
-                 T* __restrict__ yw, int K, int k, long long W) {
+                 T* __restrict__ yw, int K, int k, long long W,
+                 InstStrides is) {
   using C = Cols<T, V>;
+  const size_t inst = blockIdx.y;
+  dinv += inst * is.dinv;
+  cwinv += inst * is.cwinv;
+  vals += inst * is.vals;
+  bx += inst * is.bx;
+  bw += inst * is.bw;
+  yx += inst * K * k * W;
+  yw += inst * K * W;
   const long long nvec = W / V;  // V divides W on the vector path
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long vi = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -183,39 +207,45 @@ quasi_def_kernel(const T* __restrict__ dinv, const T* __restrict__ cwinv,
 template <typename T, int V, bool KREG>
 cudaError_t launch_qd(const void* dinv, const void* cwinv, const void* vals,
                       const void* bx, const void* bw, void* yx, void* yw,
-                      int K, int k, long long W, cudaStream_t st) {
+                      int K, int k, long long W, int kb,
+                      const InstStrides& is, cudaStream_t st) {
   long long blocks = (W / V + kQdThreads - 1) / kQdThreads;
   if (blocks > 65535LL * 16) blocks = 65535LL * 16;
   if (blocks < 1) blocks = 1;
-  quasi_def_kernel<T, V, KREG><<<static_cast<unsigned>(blocks), kQdThreads,
-                                 0, st>>>(
+  quasi_def_kernel<T, V, KREG><<<dim3(static_cast<unsigned>(blocks), kb),
+                                 kQdThreads, 0, st>>>(
       static_cast<const T*>(dinv), static_cast<const T*>(cwinv),
       static_cast<const T*>(vals), static_cast<const T*>(bx),
       static_cast<const T*>(bw), static_cast<T*>(yx), static_cast<T*>(yw), K,
-      k, W);
+      k, W, is);
   return cudaGetLastError();
 }
 
-// vec: nwcon divides into 16-byte vectors and every operand is 16-byte
-// aligned (the wrapper checks); otherwise one column per thread
+// vec: nwcon divides into 16-byte vectors and every operand (of every
+// instance) is 16-byte aligned (the wrapper checks); otherwise one column
+// per thread
 template <typename T>
 int launch_quasi_def(const void* dinv, const void* cwinv, const void* vals,
                      const void* bx, const void* bw, void* yx, void* yw,
-                     int K, int k, long long W, int vec, void* stream) {
+                     int K, int k, long long W, int vec, int kb,
+                     const InstStrides& is, void* stream) {
+  if (kb < 1 || kb > 65535) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = 16 / sizeof(T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool kreg = k <= kQdRegRows;
   cudaError_t err;
   if (vec && kreg) {
-    err = launch_qd<T, V, true>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W, st);
+    err = launch_qd<T, V, true>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W,
+                                kb, is, st);
   } else if (vec) {
     err = launch_qd<T, V, false>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W,
-                                 st);
+                                 kb, is, st);
   } else if (kreg) {
-    err = launch_qd<T, 1, true>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W, st);
+    err = launch_qd<T, 1, true>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W,
+                                kb, is, st);
   } else {
     err = launch_qd<T, 1, false>(dinv, cwinv, vals, bx, bw, yx, yw, K, k, W,
-                                 st);
+                                 kb, is, st);
   }
   return static_cast<int>(err);
 }
@@ -362,9 +392,21 @@ phi_gram_kernel(const T* __restrict__ dinv, const T* __restrict__ cwinv,
                 const T* __restrict__ bx_bot, const T* __restrict__ bw,
                 T* __restrict__ yx, T* __restrict__ yw,
                 T* __restrict__ partials, int B, int Btop, int k, long long W,
-                int tw, int S) {
+                int tw, int S, InstStrides is) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  {
+    const size_t inst = blockIdx.y;
+    dinv += inst * is.dinv;
+    cwinv += inst * is.cwinv;
+    vals += inst * is.vals;
+    bx_top += inst * is.bx;
+    if (bx_bot != nullptr) bx_bot += inst * is.bx2;
+    if (bw != nullptr) bw += inst * is.bw;
+    yx += inst * B * k * W;
+    yw += inst * B * W;
+    partials += inst * gridDim.x * B * B;
+  }
   const PgLayout L(B, k, tw, S, bw != nullptr);
   const int tid = threadIdx.x;
   const int qt = tw / 4;     // chunks per row of a tile
@@ -526,7 +568,8 @@ cudaError_t launch_pg(const void* dinv, const void* cwinv, const void* vals,
                       const void* bx_top, const void* bx_bot, const void* bw,
                       void* yx, void* yw, void* partials, int B, int Btop,
                       int k, long long W, int tw, int S, int smem,
-                      int nblocks, cudaStream_t st) {
+                      int nblocks, int kb, const InstStrides& is,
+                      cudaStream_t st) {
   static int opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -535,24 +578,26 @@ cudaError_t launch_pg(const void* dinv, const void* cwinv, const void* vals,
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  phi_gram_kernel<T, VEC, MT><<<nblocks, kPgThreads, smem, st>>>(
+  phi_gram_kernel<T, VEC, MT><<<dim3(nblocks, kb), kPgThreads, smem, st>>>(
       static_cast<const T*>(dinv), static_cast<const T*>(cwinv),
       static_cast<const T*>(vals), static_cast<const T*>(bx_top),
       static_cast<const T*>(bx_bot), static_cast<const T*>(bw),
       static_cast<T*>(yx), static_cast<T*>(yw), static_cast<T*>(partials), B,
-      Btop, k, W, tw, S);
+      Btop, k, W, tw, S, is);
   return cudaGetLastError();
 }
 
-// The plan (tw, S, mt, smem bytes, nblocks) comes from the wrapper's
-// planner (kernels.phi_gram_plan); a plan whose shared memory would not
-// hold this layout is refused here.
+// The plan (tw, S, mt, smem bytes, nblocks per instance) comes from the
+// wrapper's planner (kernels.phi_gram_plan); a plan whose shared memory
+// would not hold this layout is refused here.  kb instances: the grid is
+// (nblocks, kb), partials [kb, nblocks, B, B], gram [kb, B, B].
 template <typename T>
 int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
                     const void* bx_top, const void* bx_bot, const void* bw,
                     void* yx, void* yw, void* partials, void* gram, int B,
                     int Btop, int k, long long W, int tw, int S, int mt,
-                    int smem, int nblocks, int vec, void* stream) {
+                    int smem, int nblocks, int vec, int kb,
+                    const InstStrides& is, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tb_n = (B + kPgMA - 1) / kPgMA;
   const PgLayout L(B, k, tw, S, bw != nullptr);
@@ -560,7 +605,7 @@ int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
   if (tw % 4 != 0 || kPgThreads % (tw / 4) != 0 ||
       S < tb_n * (kPgMA + 1) - 1 || tb_n * tb_n > kPgThreads * mt ||
       static_cast<size_t>(smem) < (L.total > red ? L.total : red) * sizeof(T) ||
-      nblocks < 1) {
+      nblocks < 1 || kb < 1 || kb > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaErrorInvalidValue;
@@ -568,7 +613,7 @@ int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
   if (mt == M) {                                                              \
     err = (vec ? launch_pg<T, true, M> : launch_pg<T, false, M>)(             \
         dinv, cwinv, vals, bx_top, bx_bot, bw, yx, yw, partials, B, Btop, k,  \
-        W, tw, S, smem, nblocks, st);                                         \
+        W, tw, S, smem, nblocks, kb, is, st);                                 \
   }
   PAROPT_PG_CASE(1)
   PAROPT_PG_CASE(2)
@@ -576,9 +621,10 @@ int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
 #undef PAROPT_PG_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
   const int BB = B * B;
-  const int rblocks = (BB + kPgThreads / 32 - 1) / (kPgThreads / 32);
+  const int rblocks = (BB * kb + kPgThreads / 32 - 1) / (kPgThreads / 32);
   reduce_partials_kernel<T><<<rblocks, kPgThreads, 0, st>>>(
-      static_cast<const T*>(partials), static_cast<T*>(gram), nblocks, BB);
+      static_cast<const T*>(partials), static_cast<T*>(gram), nblocks, BB,
+      kb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -590,7 +636,17 @@ int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
       const void* bw, void* yx, void* yw, int K, int k, long long W, int vec, \
       void* stream) {                                                        \
     return paropt::launch_quasi_def<T>(dinv, cwinv, vals, bx, bw, yx, yw,    \
-                                       K, k, W, vec, stream);                \
+                                       K, k, W, vec, 1,                      \
+                                       paropt::InstStrides{}, stream);       \
+  }                                                                          \
+  extern "C" int paropt_quasi_def_apply_batched_##suffix(                    \
+      const void* dinv, const void* cwinv, const void* vals, const void* bx,  \
+      const void* bw, void* yx, void* yw, int K, int k, long long W, int vec, \
+      int kb, long long sdinv, long long scwinv, long long svals,             \
+      long long sbx, long long sbw, void* stream) {                          \
+    return paropt::launch_quasi_def<T>(                                      \
+        dinv, cwinv, vals, bx, bw, yx, yw, K, k, W, vec, kb,                 \
+        paropt::InstStrides{sdinv, scwinv, svals, sbx, 0, sbw}, stream);     \
   }                                                                          \
   extern "C" int paropt_phi_gram_##suffix(                                   \
       const void* dinv, const void* cwinv, const void* vals,                 \
@@ -600,7 +656,20 @@ int launch_phi_gram(const void* dinv, const void* cwinv, const void* vals,
       void* stream) {                                                        \
     return paropt::launch_phi_gram<T>(dinv, cwinv, vals, bx_top, bx_bot, bw, \
                                       yx, yw, partials, gram, B, Btop, k, W, \
-                                      tw, S, mt, smem, nblocks, vec, stream); \
+                                      tw, S, mt, smem, nblocks, vec, 1,      \
+                                      paropt::InstStrides{}, stream);        \
+  }                                                                          \
+  extern "C" int paropt_phi_gram_batched_##suffix(                           \
+      const void* dinv, const void* cwinv, const void* vals,                 \
+      const void* bx_top, const void* bx_bot, const void* bw, void* yx,      \
+      void* yw, void* partials, void* gram, int B, int Btop, int k,          \
+      long long W, int tw, int S, int mt, int smem, int nblocks, int vec,    \
+      int kb, long long sdinv, long long scwinv, long long svals,            \
+      long long sbx, long long sbx2, long long sbw, void* stream) {          \
+    return paropt::launch_phi_gram<T>(                                       \
+        dinv, cwinv, vals, bx_top, bx_bot, bw, yx, yw, partials, gram, B,    \
+        Btop, k, W, tw, S, mt, smem, nblocks, vec, kb,                       \
+        paropt::InstStrides{sdinv, scwinv, svals, sbx, sbx2, sbw}, stream);  \
   }
 
 PAROPT_QD_ENTRY(f32, float)

@@ -16,13 +16,15 @@ the ρ update, the in-loop QN update, the Newton-Krylov phase
 (``use_hvec_product``: `_fused_gmres`, unrolled to the subspace size; the
 switch to it is read on the host once per step where JAX's ``lax.cond``
 runs one branch), the non-finite fail-stop, the freeze once converged and
-the facade's whole solve (`fused_ip_optimize`).  Not yet ported:
-``solve_batched`` and the chunked solve.
+the facade's whole solve (`fused_ip_optimize`) and k solves run as one
+(`FusedIP.solve_batched`: the step's phases under ``torch.func.vmap``).
+Not ported: the chunked solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -36,7 +38,7 @@ from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
 from .ops.veclib import dot, multi_norm
-from .tree import tmap
+from .tree import bvmap, pytree, tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
            "HostSyncs", "model_from_problem", "data_template_from_problem",
@@ -94,6 +96,7 @@ class FusedIPOptions(NamedTuple):
     gmres_atol: float = 1e-30
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class FusedState:
     """Complete solver state."""
@@ -184,8 +187,38 @@ class FusedIP:
                                  model_params, compact, self.syncs,
                                  max_iters=max_iters, on_step=on_chunk)
 
-    def solve_batched(self, *args, **kwargs):
-        raise NotImplementedError("solve_batched is not ported yet")
+    def solve_batched(self, x0_batch, data: ProblemData, model_params=(),
+                      qn_state: Optional[qnmod.QNState] = None, compact=None,
+                      data_axes=None, model_params_axes=None,
+                      max_iters: Optional[int] = None) -> FusedState:
+        """Run k whole solves as one: multi-start, or a sweep over problem
+        data (paropt_tpu/ip_fused.py:241-289, JAX's ``vmap`` of its
+        ``while_loop``).
+
+        Every phase of a step runs once for all instances under
+        ``torch.func.vmap``, so each kernel launches once per call with its
+        instance axis; the host reads one flag per loop turn (every
+        instance converged; every line search done; some instance asking
+        for NK).  An instance that has converged keeps its state bit for
+        bit while the others iterate.
+
+        ``x0_batch``: [k, n] starting points.  ``data`` and
+        ``model_params`` are shared unless ``data_axes`` /
+        ``model_params_axes`` give, as in JAX, a prefix tree of 0 or None
+        (e.g. ``dataclasses.replace(tmap(lambda _: None, data), ub=0)``
+        with ``data.ub`` of shape [k, n]).  ``qn_state`` and ``compact``
+        are shared.  Returns a `FusedState` whose every leaf has a leading
+        k axis (`tree.take(state, i)` is instance i)."""
+        run = _Run(self.syncs, batched=True)
+        x0_batch = torch.as_tensor(x0_batch, device=data.lb.device)
+        state = run.call(functools.partial(_fused_init, self.model,
+                                           self.opts),
+                         (0, data_axes, model_params_axes, None, None),
+                         x0_batch, data, model_params, qn_state, compact)
+        return _fused_solve_loop(self.model, self.opts, state, data,
+                                 model_params, compact, self.syncs,
+                                 max_iters=max_iters, run=run,
+                                 axes=(data_axes, model_params_axes, None))
 
 
 # ---------------------------------------------------------------------------
@@ -454,11 +487,86 @@ def _neg_or(x, fill=-1.0):
     return torch.where(x < 0.0, x, fill)
 
 
-def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
-                d: ProblemData, model_params, compact,
-                host: Callable[[torch.Tensor], bool] = bool) -> FusedState:
-    """One full major iteration.  ``host`` reads a device flag on the host
-    (the line search's ``done``)."""
+class _Run:
+    """How the phases of a step run, and how the host reads a flag.
+
+    One instance: each phase is a plain call and a flag is read as it is.
+    ``batched``: each phase runs under ``torch.func.vmap`` over the leading
+    instance axis (`tree.bvmap`, with JAX's ``in_axes`` meaning), a loop's
+    flag is read as "every instance" (`all`) or "some instance" (`any`),
+    and `freeze` keeps the carry of the instances that were already done,
+    bit for bit, as JAX's ``while_loop`` batching rule does.  Either way a
+    read is one host sync, counted by ``host``."""
+
+    def __init__(self, host, batched: bool = False):
+        self.host = host
+        self.batched = batched
+
+    def call(self, fn, axes, *args):
+        return bvmap(fn, axes, *args) if self.batched else fn(*args)
+
+    def all(self, flag) -> bool:
+        return self.host(torch.all(flag) if self.batched else flag)
+
+    def any(self, flag) -> bool:
+        return self.host(torch.any(flag) if self.batched else flag)
+
+    def freeze(self, done, new, old):
+        """``old`` where ``done`` (the incoming flag), else ``new``."""
+        if not self.batched:
+            return new
+        return bvmap(_keep, (0, 0, 0), done, new, old)
+
+
+def _keep(done, new, old):
+    return tmap(lambda a, b: torch.where(done, b, a), new, old)
+
+
+class _Head(NamedTuple):
+    """What a step computes before its step solve."""
+    f: kkt.KKTFactor
+    cq: Any                  # the Hessian's compact form
+    r: IPVars                # the residual at the new μ (corrector incl.)
+    mu: torch.Tensor
+    res_norm: torch.Tensor
+    converged: torch.Tensor
+    ls_base: torch.Tensor
+    comp: torch.Tensor
+    use_nk: torch.Tensor     # the Newton-Krylov switch (False when off)
+    ew_rtol: Optional[torch.Tensor]
+
+
+class _Merit(NamedTuple):
+    """The scaled step and the merit function's pieces at α = 0."""
+    ps: IPVars
+    ax: torch.Tensor
+    az: torch.Tensor
+    rho: torch.Tensor
+    m0: torch.Tensor
+    dm0: torch.Tensor
+    px_norm: Optional[torch.Tensor]     # the line search's pieces
+    alpha_min: Optional[torch.Tensor]
+
+
+class _LineSearch(NamedTuple):
+    """The line search's carry (the JAX while_loop's)."""
+    alpha: torch.Tensor
+    best_a: torch.Tensor
+    best_m: torch.Tensor
+    done: torch.Tensor
+    success: torch.Tensor
+    nev: torch.Tensor       # int32 trials run
+
+
+def _nk_enabled(opts: FusedIPOptions, model: ModelFns) -> bool:
+    return (opts.use_hvec_product and opts.gmres_subspace_size > 0
+            and model.hvp is not None)
+
+
+def _step_head(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+               d: ProblemData, model_params, compact) -> _Head:
+    """The step up to its solve: the factor, the barrier update, the
+    residual and its norm, the convergence test, the NK switch."""
     v = state.vars
     dtype = v.x.dtype
     dev = v.x.device
@@ -536,39 +644,63 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
     converged = (state.k > 0) & (mu <= 0.1 * tol) & (
         (res_norm < tol) | (state.line_search_test >= 2))
 
-    # -- KKT step -----------------------------------------------------------
-    nk_iters = zero_i
-    use_nk = False
-    if (opts.use_hvec_product and opts.gmres_subspace_size > 0
-            and model.hvp is not None):
+    use_nk = torch.zeros((), dtype=torch.bool, device=dev)
+    ew_rtol = None
+    if _nk_enabled(opts, model):
         # Newton-Krylov switch (`ParOptInteriorPoint.cpp:4853-4899`):
-        # residual groups small and the Eisenstat-Walker forcing term small.
-        # JAX's lax.cond runs one branch; here the switch is read on the
-        # host, once per step
+        # residual groups small and the Eisenstat-Walker forcing term small
         prime0, dual0, infeas0 = _norm_components(r, opts.norm_type)
         ew_rtol = (opts.eisenstat_walker_gamma
                    * (res_norm / torch.clamp(state.res_norm, min=1e-300))
                    ** opts.eisenstat_walker_alpha)
         nk_tol = opts.nk_switch_tol
-        use_nk = host((state.k > 0) & (prime0 < nk_tol) & (dual0 < nk_tol)
-                      & (infeas0 < nk_tol)
-                      & (ew_rtol < opts.max_gmres_rtol))
-    if use_nk:
-        with record_function("paropt.kkt_solve_nk"):
-            p, nk_iters = _fused_gmres(
-                model, opts, model_params, v, d, f, cq, r,
-                torch.clamp(ew_rtol, 1e-12, opts.max_gmres_rtol), mu)
-    else:
-        with record_function("paropt.kkt_solve"):
-            p = kkt.solve_kkt(v, d, f, r,
-                              refine_steps=opts.iterative_refinement_steps,
-                              qn_compact=cq)
+        use_nk = ((state.k > 0) & (prime0 < nk_tol) & (dual0 < nk_tol)
+                  & (infeas0 < nk_tol) & (ew_rtol < opts.max_gmres_rtol))
+    return _Head(f=f, cq=cq, r=r, mu=mu, res_norm=res_norm,
+                 converged=converged, ls_base=ls_base, comp=comp,
+                 use_nk=use_nk, ew_rtol=ew_rtol)
 
-    # -- fraction-to-boundary scaling and the merit pieces -----------------
-    ps, ax, az, _ = _scale_step(v, d, p, mu, comp,
+
+def _step_qn(opts: FusedIPOptions, state: FusedState, d: ProblemData,
+             head: _Head):
+    """The step solve with the factor: (step, 0 GMRES arms)."""
+    d = _refresh_data(d, state.g, state.A, state.c, state.cw)
+    with record_function("paropt.kkt_solve"):
+        p = kkt.solve_kkt(state.vars, d, head.f, head.r,
+                          refine_steps=opts.iterative_refinement_steps,
+                          qn_compact=head.cq)
+    return p, torch.zeros((), dtype=torch.int32, device=p.x.device)
+
+
+def _step_nk(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+             d: ProblemData, model_params, head: _Head):
+    """The Newton-Krylov step solve: (step, GMRES arms)."""
+    d = _refresh_data(d, state.g, state.A, state.c, state.cw)
+    with record_function("paropt.kkt_solve_nk"):
+        return _fused_gmres(
+            model, opts, model_params, state.vars, d, head.f, head.cq,
+            head.r, torch.clamp(head.ew_rtol, 1e-12, opts.max_gmres_rtol),
+            head.mu)
+
+
+def _pick_nk(use_nk, p_nk, it_nk, p_qn, it_qn):
+    """Per instance, the NK step where it was asked for, else the QN step
+    (the select ``lax.cond`` becomes under ``vmap``)."""
+    return (tmap(lambda a, b: torch.where(use_nk, a, b), p_nk, p_qn),
+            torch.where(use_nk, it_nk, it_qn))
+
+
+def _step_merit(opts: FusedIPOptions, state: FusedState, d: ProblemData,
+                head: _Head, p: IPVars) -> _Merit:
+    """Fraction-to-boundary scaling, the merit pieces and the ρ update."""
+    v = state.vars
+    d = _refresh_data(d, state.g, state.A, state.c, state.cw)
+    tol = opts.abs_res_tol
+    mu = head.mu
+    ps, ax, az, _ = _scale_step(v, d, p, mu, head.comp,
                                 opts.min_fraction_to_boundary)
     merit0, pmerit0, infeas, infeas_proj, pTBp = _merit_parts(
-        v, d, ps, state.fobj, mu, rbb, cq, True)
+        v, d, ps, state.fobj, mu, opts.rel_bound_barrier, head.cq, True)
 
     # ρ update (evalMeritInitDeriv tail)
     descent = opts.penalty_descent_fraction
@@ -591,71 +723,107 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
     m0 = merit0 + rho * infeas
     dm0 = torch.where(small_inf, pmerit0 - rho * ax * infeas,
                       pmerit0 + rho * infeas_proj)
-
-    # -- line search --------------------------------------------------------
-    fprec = opts.function_precision
-    dprec = opts.design_precision
-
-    @record_function("paropt.line_search_trial")
-    def trial(alpha):
-        xt, st, tt, swt, twt = _trial_point(v, d, ps, alpha, dprec)
-        ft, ct, cwt = model.eval_obj_con(model_params, xt)
-        return _merit_eval(xt, st, tt, swt, twt, ft, ct, cwt, d, mu, rbb,
-                           rho)
-
-    one = torch.ones((), dtype=dtype, device=dev)
+    px_norm = alpha_min = None
     if opts.use_line_search:
         px_norm = torch.max(torch.abs(ps.x))
         alpha_min = torch.clamp(
             torch.where(px_norm > 0,
-                        fprec / torch.clamp(px_norm, min=1e-300), 1.0),
+                        opts.function_precision
+                        / torch.clamp(px_norm, min=1e-300), 1.0),
             max=0.5)
-        alpha = one
-        best_a = -one
-        best_m = torch.zeros((), dtype=dtype, device=dev)
-        success = torch.zeros((), dtype=torch.bool, device=dev)
-        nev = 0
-        # the JAX while_loop, with its `done` test read on the host
-        for _ in range(opts.max_line_iters):
-            merit = trial(alpha)
-            nev += 1
-            better = (best_a < 0.0) | (merit < best_m)
-            best_a = torch.where(better, alpha, best_a)
-            best_m = torch.where(better, merit, best_m)
-            armijo_ok = (merit - opts.armijo_constant * alpha * dm0
-                         < m0 + fprec)
-            # quadratic interpolation backtrack
-            denom = merit - m0 - dm0 * alpha
-            if opts.use_backtracking_alpha:
-                alpha_new = 0.5 * alpha
-            else:
-                alpha_new = torch.where(
-                    denom != 0.0,
-                    -0.5 * dm0 * alpha * alpha
-                    / torch.where(denom != 0.0, denom, 1.0), alpha_min)
-                alpha_new = _clip(alpha_new, 0.01 * alpha, alpha)
-            alpha_next = torch.maximum(alpha_new, alpha_min)
-            done = armijo_ok | (alpha <= alpha_min)
-            success = success | armijo_ok
-            alpha = torch.where(done, alpha, alpha_next)
-            if host(done):
-                break
+    return _Merit(ps=ps, ax=ax, az=az, rho=rho, m0=m0, dm0=dm0,
+                  px_norm=px_norm, alpha_min=alpha_min)
+
+
+@record_function("paropt.line_search_trial")
+def _trial_merit(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+                 d: ProblemData, model_params, head: _Head, mer: _Merit,
+                 alpha):
+    """The merit function at the trial point v + α·ps."""
+    xt, st, tt, swt, twt = _trial_point(state.vars, d, mer.ps, alpha,
+                                        opts.design_precision)
+    ft, ct, cwt = model.eval_obj_con(model_params, xt)
+    return _merit_eval(xt, st, tt, swt, twt, ft, ct, cwt, d, head.mu,
+                       opts.rel_bound_barrier, mer.rho)
+
+
+def _ls_start(state: FusedState, done) -> _LineSearch:
+    """The line search's initial carry; ``done`` marks the instances that
+    run no trial (those already stopped, in a batch)."""
+    x = state.vars.x
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return _LineSearch(alpha=one, best_a=-one, best_m=0.0 * one, done=done,
+                       success=torch.zeros_like(done),
+                       nev=torch.zeros_like(state.k))
+
+
+def _ls_trial(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+              d: ProblemData, model_params, head: _Head, mer: _Merit,
+              ls: _LineSearch) -> _LineSearch:
+    """One trial of the merit line search (the JAX while_loop's body).  A
+    carry that is already done is kept as it is, as JAX's batching rule
+    keeps it; one instance runs a trial only while it is not done."""
+    d = _refresh_data(d, state.g, state.A, state.c, state.cw)
+    fprec = opts.function_precision
+    alpha, m0, dm0 = ls.alpha, mer.m0, mer.dm0
+    merit = _trial_merit(model, opts, state, d, model_params, head, mer,
+                         alpha)
+    better = (ls.best_a < 0.0) | (merit < ls.best_m)
+    best_a = torch.where(better, alpha, ls.best_a)
+    best_m = torch.where(better, merit, ls.best_m)
+    armijo_ok = merit - opts.armijo_constant * alpha * dm0 < m0 + fprec
+    # quadratic interpolation backtrack
+    denom = merit - m0 - dm0 * alpha
+    if opts.use_backtracking_alpha:
+        alpha_new = 0.5 * alpha
+    else:
+        alpha_new = torch.where(
+            denom != 0.0,
+            -0.5 * dm0 * alpha * alpha
+            / torch.where(denom != 0.0, denom, 1.0), mer.alpha_min)
+        alpha_new = _clip(alpha_new, 0.01 * alpha, alpha)
+    alpha_next = torch.maximum(alpha_new, mer.alpha_min)
+    done = armijo_ok | (alpha <= mer.alpha_min)
+    keep = ls.done
+    return _LineSearch(
+        alpha=torch.where(keep | done, alpha, alpha_next),
+        best_a=torch.where(keep, ls.best_a, best_a),
+        best_m=torch.where(keep, ls.best_m, best_m),
+        done=keep | done,
+        success=ls.success | (~keep & armijo_ok),
+        nev=ls.nev + (~keep).to(ls.nev.dtype))
+
+
+def _step_tail(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+               d: ProblemData, model_params, compact, head: _Head,
+               mer: _Merit, ls: Optional[_LineSearch],
+               nk_iters) -> FusedState:
+    """The step after its line search: the accepted α, the new point and
+    its evaluation, the QN update, the fail-stop and the freeze."""
+    v = state.vars
+    d = _refresh_data(d, state.g, state.A, state.c, state.cw)
+    fprec = opts.function_precision
+    dprec = opts.design_precision
+    m0, dm0 = mer.m0, mer.dm0
+    if ls is not None:
         # Armijo failed everywhere: fall back to the best alpha seen when
         # it does not increase the merit beyond precision
-        use_best = (~success) & (best_m <= m0 + fprec) & (best_a > 0.0)
-        alpha = torch.where(success, alpha,
-                            torch.where(use_best, best_a, 0.0))
+        use_best = (~ls.success) & (ls.best_m <= m0 + fprec) & (ls.best_a > 0.0)
+        alpha = torch.where(ls.success, ls.alpha,
+                            torch.where(use_best, ls.best_a, 0.0))
         # descent-direction failure: don't move
         alpha = torch.where(dm0 >= 0.0, 0.0, alpha)
-        no_improve = (((best_m >= m0 - fprec) & (best_m <= m0 + fprec))
-                      | (alpha <= 0.0) | (px_norm < dprec))
-        neval_add = zero_i + nev
+        no_improve = (((ls.best_m >= m0 - fprec) & (ls.best_m <= m0 + fprec))
+                      | (alpha <= 0.0) | (mer.px_norm < dprec))
+        neval_add = ls.nev
     else:
-        alpha = one
-        m1 = trial(alpha)
+        alpha = torch.ones((), dtype=v.x.dtype, device=v.x.device)
+        m1 = _trial_merit(model, opts, state, d, model_params, head, mer,
+                          alpha)
         no_improve = (((m1 >= m0 - fprec) & (m1 <= m0 + fprec))
                       | (torch.abs(dm0) <= fprec))
-        neval_add = zero_i + 1
+        neval_add = torch.ones_like(state.k)
+    ps = mer.ps
 
     # -- apply the step -----------------------------------------------------
     vn = _apply_step(v, d, ps, alpha, dprec)
@@ -675,17 +843,19 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         with record_function("paropt.qn_update"):
             qn_n, _, _ = qnmod.qn_update(
                 state.qn, alpha * ps.x, y - y0,
-                compact=None if opts.use_diag_hessian else cq,
+                compact=None if opts.use_diag_hessian else head.cq,
                 accept=alpha > 0.0)
 
-    ls_count = torch.where(no_improve, ls_base + 1, zero_i)
+    ls_count = torch.where(no_improve, head.ls_base + 1,
+                           torch.zeros_like(state.k))
+    converged, res_norm, mu = head.converged, head.res_norm, head.mu
 
     new_state = FusedState(
-        vars=vn, qn=qn_n, mu=mu, rho=rho, fobj=fobj_n, c=c_n, cw=cw_n,
+        vars=vn, qn=qn_n, mu=mu, rho=mer.rho, fobj=fobj_n, c=c_n, cw=cw_n,
         g=g_n, A=A_n, k=state.k + 1, converged=converged,
-        res_norm=res_norm, comp=comp, fobj_prev=state.fobj,
+        res_norm=res_norm, comp=head.comp, fobj_prev=state.fobj,
         line_search_test=ls_count, neval=state.neval + neval_add + 1,
-        alpha=alpha, alpha_x=ax, alpha_z=az, gmres_iters=nk_iters)
+        alpha=alpha, alpha_x=mer.ax, alpha_z=mer.az, gmres_iters=nk_iters)
 
     # fail-stop: a non-finite accepted state freezes at the previous one
     bad = ~(torch.isfinite(fobj_n) & torch.isfinite(torch.max(torch.abs(vn.x)))
@@ -699,20 +869,77 @@ def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                 new_state, old)
 
 
+def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
+                d: ProblemData, model_params, compact,
+                host: Callable[[torch.Tensor], bool] = bool,
+                run: Optional[_Run] = None,
+                axes=(None, None, None)) -> FusedState:
+    """One full major iteration, as its phases (`_step_head`, the step
+    solve, `_step_merit`, `_ls_trial` per line-search trial, `_step_tail`)
+    with the host reads between them: the NK switch and the line search's
+    ``done``, read by ``host``.  ``run`` (a batched `_Run`) runs the phases
+    over k instances; ``axes`` are then the instance axes of (d,
+    model_params, compact)."""
+    R = run or _Run(host)
+    da, pa, ca = axes
+    head = R.call(functools.partial(_step_head, model, opts), (0, da, pa, ca),
+                  state, d, model_params, compact)
+
+    # -- KKT step: JAX's lax.cond between the NK and QN solves is read on
+    #    the host, once per step; in a batch, NK runs when some live
+    #    instance asks for it and the others keep their QN step -----------
+    qn_step = functools.partial(_step_qn, opts)
+    want = head.use_nk & ~state.converged if R.batched else head.use_nk
+    if _nk_enabled(opts, model) and R.any(want):
+        p, nk_iters = R.call(functools.partial(_step_nk, model, opts),
+                             (0, da, pa, 0), state, d, model_params, head)
+        if R.batched:
+            p_qn, it_qn = R.call(qn_step, (0, da, 0), state, d, head)
+            p, nk_iters = R.call(_pick_nk, (0,) * 5, want, p, nk_iters,
+                                 p_qn, it_qn)
+    else:
+        p, nk_iters = R.call(qn_step, (0, da, 0), state, d, head)
+
+    mer = R.call(functools.partial(_step_merit, opts), (0, da, 0, 0),
+                 state, d, head, p)
+
+    # -- line search: the JAX while_loop, its `done` read on the host -------
+    ls = None
+    if opts.use_line_search:
+        done0 = (state.converged if R.batched
+                 else torch.zeros_like(state.converged))
+        ls = R.call(_ls_start, (0, 0), state, done0)
+        trial = functools.partial(_ls_trial, model, opts)
+        for _ in range(opts.max_line_iters):
+            ls = R.call(trial, (0, da, pa, 0, 0, 0), state, d, model_params,
+                        head, mer, ls)
+            if R.all(ls.done):
+                break
+
+    return R.call(functools.partial(_step_tail, model, opts),
+                  (0, da, pa, ca, 0, 0, 0, 0), state, d, model_params,
+                  compact, head, mer, ls, nk_iters)
+
+
 def _fused_solve_loop(model: ModelFns, opts: FusedIPOptions,
                       state: FusedState, d: ProblemData, model_params,
                       compact, host: Callable[[torch.Tensor], bool],
                       max_iters: Optional[int] = None,
-                      on_step=None) -> FusedState:
+                      on_step=None, run: Optional[_Run] = None,
+                      axes=(None, None, None)) -> FusedState:
     """Step until ``converged`` (read on the host after each step) or
     ``max_iters`` (default ``opts.max_major_iters``): the counterpart of
-    JAX's ``lax.while_loop`` solve."""
+    JAX's ``lax.while_loop`` solve.  With a batched ``run`` the loop steps
+    until every instance is converged, and an instance that is converged
+    keeps its state bit for bit while the others step."""
+    R = run or _Run(host)
     for _ in range(max_iters or opts.max_major_iters):
-        state = _fused_step(model, opts, state, d, model_params, compact,
-                            host=host)
+        new = _fused_step(model, opts, state, d, model_params, compact,
+                          run=R, axes=axes)
+        state = R.freeze(state.converged, new, state)
         if on_step is not None:
             on_step(state)
-        if host(state.converged):
+        if R.all(state.converged):
             break
     return state
 

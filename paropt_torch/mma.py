@@ -13,9 +13,9 @@ the JAX package runs the whole loop as one ``lax.while_loop``; here it is a
 host loop over outer iterations, and the inner solve is skipped after one
 host read of ``converged`` once the loop has converged (JAX's
 ``lax.cond``).  ``FusedMMA.syncs`` counts the host reads, the inner
-solver's included.
-
-Not ported yet: ``FusedMMA.solve_batched``.
+solver's included.  `FusedMMA.solve_batched` runs k multi-start solves as
+one: the outer step's phases (`_mma_head`, the inner solve, `_mma_tail`)
+under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -32,10 +32,11 @@ from torch.profiler import record_function
 
 from .ip import HostSyncs, InteriorPoint
 from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
-                       _fused_solve_loop)
+                       _fused_solve_loop, _Run)
 from .ops.kkt import ProblemData
 from .problem import Problem
 from .tr import _viol
+from .tree import pytree, tmap
 from .utils.logging import MMALogger
 from .utils.options import OptionRegistry, make_options
 
@@ -480,6 +481,7 @@ class FusedMMAOptions(NamedTuple):
     max_no_improvement: int = 0
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class FusedMMAState:
     """Outer-loop state."""
@@ -512,13 +514,26 @@ def _asymptote_factor(indc, mo: FusedMMAOptions):
     return torch.where(indc < 0.0, contract, mo.asymptote_relax)
 
 
-def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
-                    ip_opts: FusedIPOptions, mo: FusedMMAOptions,
-                    lbv, ubv, d_tmpl: ProblemData, params_user,
-                    state: FusedMMAState, host=bool) -> FusedMMAState:
-    """One outer MMA iteration: evaluate, update asymptotes/coeffs, test
-    convergence, inner-solve (skipped once converged).  ``host`` reads a
-    device flag on the host."""
+class _MMAHead(NamedTuple):
+    """An outer MMA iteration up to its inner solve."""
+    converged: torch.Tensor
+    stalled: torch.Tensor
+    fobj: torch.Tensor
+    infeas: torch.Tensor
+    l1: torch.Tensor
+    linf: torch.Tensor
+    best_l1: torch.Tensor
+    no_improve: torch.Tensor
+    alpha: torch.Tensor     # the inner solve's bounds
+    beta: torch.Tensor
+    params: MMAParams       # the subproblem (its sparse pattern left out)
+
+
+def _mma_head(user_model: ModelFns, mo: FusedMMAOptions, lbv, ubv,
+              d_tmpl: ProblemData, params_user,
+              state: FusedMMAState) -> _MMAHead:
+    """Evaluate, update the asymptotes and coefficients, test convergence
+    (the outer step before its inner solve)."""
     x, x1, x2 = state.x, state.x1, state.x2
     dt = x.dtype
     dev = x.device
@@ -618,31 +633,81 @@ def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
                  & (tol_met | stall_exit))
     stalled = state.stalled | (converged & ~state.converged & stall_exit
                                & ~tol_met)
+    params = MMAParams(L=L, U=U, p0=p0, q0=q0, pi=pi, qi=qi, b=b, cons=cons,
+                       A=A, x0=x, cwk=cw, Aw_cols=None, Aw_vals=None)
+    return _MMAHead(converged=converged, stalled=stalled, fobj=fobj.to(dt),
+                    infeas=infeas, l1=l1, linf=linf, best_l1=best_new,
+                    no_improve=no_imp_new, alpha=alpha, beta=beta,
+                    params=params)
 
-    # -- inner fused IP solve (skipped once converged) -----------------------
-    if host(converged):
-        xn, zn, zwn, zln, zun = x, state.z, state.zw, state.zl, state.zu
-        kin = torch.zeros_like(state.k)
-    else:
-        params = MMAParams(L=L, U=U, p0=p0, q0=q0, pi=pi, qi=qi, b=b,
-                           cons=cons, A=A, x0=x, cwk=cw,
-                           Aw_cols=d_tmpl.Aw_cols, Aw_vals=d_tmpl.Aw_vals)
-        d = dataclasses.replace(d_tmpl, lb=alpha, ub=beta)
-        with record_function("paropt.mma.inner_ip"):
-            st0 = _fused_init(mma_model, ip_opts, x, d, params, None, None)
-            st = _fused_solve_loop(mma_model, ip_opts, st0, d, params, None,
-                                   host)
-        v = st.vars
-        xn, zn, zwn, zln, zun, kin = v.x, v.z, v.zw, v.zl, v.zu, st.k
 
+def _skip_inner(state: FusedMMAState):
+    """The inner solve's outputs when it is skipped: the incoming point
+    and multipliers, no inner iteration."""
+    return (state.x, state.z, state.zw, state.zl, state.zu,
+            torch.zeros_like(state.k))
+
+
+def _pick_inner(skip, state: FusedMMAState, inner):
+    return tuple(torch.where(skip, a, b)
+                 for a, b in zip(_skip_inner(state), inner))
+
+
+def _mma_tail(state: FusedMMAState, head: _MMAHead, inner) -> FusedMMAState:
+    xn, zn, zwn, zln, zun, kin = inner
+    converged = head.converged
     return FusedMMAState(
-        x=xn, x1=torch.where(converged, x1, x),
-        x2=torch.where(converged, x2, x1),
-        L=L, U=U, z=zn, zw=zwn, zl=zln, zu=zun, fobj=fobj.to(dt),
-        k=state.k + (~converged).to(state.k.dtype),
+        x=xn, x1=torch.where(converged, state.x1, state.x),
+        x2=torch.where(converged, state.x2, state.x1),
+        L=head.params.L, U=head.params.U, z=zn, zw=zwn, zl=zln, zu=zun,
+        fobj=head.fobj, k=state.k + (~converged).to(state.k.dtype),
         subiters=state.subiters + kin, converged=converged,
-        infeas=infeas, l1=l1, linf=linf,
-        best_l1=best_new, no_improve=no_imp_new, stalled=stalled)
+        infeas=head.infeas, l1=head.l1, linf=head.linf,
+        best_l1=head.best_l1, no_improve=head.no_improve,
+        stalled=head.stalled)
+
+
+def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
+                    ip_opts: FusedIPOptions, mo: FusedMMAOptions,
+                    lbv, ubv, d_tmpl: ProblemData, params_user,
+                    state: FusedMMAState, host=bool,
+                    run: Optional[_Run] = None) -> FusedMMAState:
+    """One outer MMA iteration: evaluate, update asymptotes/coeffs, test
+    convergence, inner-solve (skipped once converged).  ``host`` reads a
+    device flag on the host.  A batched ``run`` steps k instances: the
+    inner solve is skipped once every instance is converged, and runs
+    batched otherwise, the converged instances keeping their point."""
+    R = run or _Run(host)
+    head = R.call(functools.partial(_mma_head, user_model, mo, lbv, ubv,
+                                    d_tmpl, params_user), (0,), state)
+    skip = head.converged | state.converged if R.batched else head.converged
+    # -- inner fused IP solve (skipped once converged) -----------------------
+    if R.all(skip):
+        inner = R.call(_skip_inner, (0,), state)
+    else:
+        params = head.params._replace(Aw_cols=d_tmpl.Aw_cols,
+                                      Aw_vals=d_tmpl.Aw_vals)
+        d = dataclasses.replace(d_tmpl, lb=head.alpha, ub=head.beta)
+        # the instance axes of (d, params): the bounds and the subproblem
+        # coefficients are per instance, the rest is shared
+        da = dataclasses.replace(tmap(lambda _: None, d_tmpl), lb=0, ub=0)
+        pa = params._replace(**{f: 0 for f in MMAParams._fields
+                                if f not in ("Aw_cols", "Aw_vals")},
+                             Aw_cols=None, Aw_vals=None)
+        with record_function("paropt.mma.inner_ip"):
+            st0 = R.call(functools.partial(_fused_init, mma_model, ip_opts),
+                         (0, da, pa, None, None), state.x, d, params, None,
+                         None)
+            if R.batched:
+                # the instances that skip the solve start it converged
+                st0 = dataclasses.replace(st0, converged=skip)
+            st = _fused_solve_loop(mma_model, ip_opts, st0, d, params, None,
+                                   host, run=R, axes=(da, pa, None))
+        v = st.vars
+        inner = (v.x, v.z, v.zw, v.zl, v.zu, st.k)
+        if R.batched:
+            inner = R.call(_pick_inner, (0, 0, 0), skip, state, inner)
+    return R.call(_mma_tail, (0, 0, 0), state, head, inner)
 
 
 class FusedMMA:
@@ -770,9 +835,38 @@ class FusedMMA:
         return result, state
 
     def solve_batched(self, x0_batch, chunk="auto"):
-        raise NotImplementedError(
-            "FusedMMA.solve_batched is not ported yet (it waits for "
-            "FusedIP.solve_batched)")
+        """k multi-start solves as one (paropt_tpu/mma.py:815-855): the
+        outer step's phases and the inner IP solves run batched under
+        ``torch.func.vmap``, one host read of "every instance converged"
+        per outer iteration; an instance that has converged keeps its
+        state bit for bit while the others iterate.
+
+        ``x0_batch``: [k, n] starting designs.  ``chunk``: "auto" or None,
+        both the whole loop (the watchdog chunking is not ported).  Returns
+        (results, states): ``results`` holds per-instance numpy arrays of
+        fobj, converged, stalled, niter, infeas, l1 and linfty (and x
+        [k, n]); ``states`` is the `FusedMMAState` with a leading k axis."""
+        if chunk not in ("auto", None):
+            raise NotImplementedError("the chunked solve is not ported yet")
+        run = _Run(self.syncs, batched=True)
+        s0 = self._state0
+        x0_batch = torch.as_tensor(x0_batch, dtype=s0.x.dtype,
+                                   device=s0.x.device)
+        state = run.call(
+            lambda st, x: dataclasses.replace(st, x=x, x1=x, x2=x),
+            (None, 0), s0, x0_batch)
+        for _ in range(self._mo.max_iterations):
+            new = self._step(state, run=run)
+            state = run.freeze(state.converged, new, state)
+            if run.all(state.converged):
+                break
+        fobj_final = run.call(lambda x: self._ev((), x)[0], (0,), state.x)
+        results = {"x": state.x, "fobj": fobj_final.cpu().numpy(),
+                   **{key: getattr(state, f).cpu().numpy() for key, f in (
+                       ("converged", "converged"), ("stalled", "stalled"),
+                       ("niter", "k"), ("infeas", "infeas"), ("l1", "l1"),
+                       ("linfty", "linf"))}}
+        return results, state
 
 
 # bounded strong-reference LRU: a weak-value cache would evict the solver

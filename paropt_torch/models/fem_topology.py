@@ -141,7 +141,11 @@ class _Compliance(torch.autograd.Function):
     """c(x) = f·u with K(E(x)) u = f, for a model that gives
     ``_state(x) -> (c, u)`` and ``_compliance_vjp(x, u, ct)``.  The backward
     reuses the forward's u.  ``forward`` takes no ctx and ``setup_context``
-    is separate: the form ``torch.func.grad`` accepts."""
+    is separate: the form ``torch.func.grad`` accepts; under
+    ``torch.func.vmap`` (a batched solve) PyTorch runs forward and backward
+    batched (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(x, model):

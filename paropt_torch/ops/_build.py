@@ -38,10 +38,16 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     **{f"paropt_qn_roll_update_{sfx}": [_P] * 7 + [_I, _L, _I, _P]
        for sfx in ("f32", "f64", "bf16")},
+    **{f"paropt_qn_roll_update_batched_{sfx}": [_P] * 7 + [_I, _L, _I, _I]
+       + [_L] * 4 + [_P] for sfx in ("f32", "f64", "bf16")},
     **{f"paropt_quasi_def_apply_{sfx}": [_P] * 7 + [_I, _I, _L, _I, _P]
        for sfx in ("f32", "f64")},
+    **{f"paropt_quasi_def_apply_batched_{sfx}": [_P] * 7
+       + [_I, _I, _L, _I, _I] + [_L] * 5 + [_P] for sfx in ("f32", "f64")},
     **{f"paropt_phi_gram_{sfx}": [_P] * 10 + [_I, _I, _I, _L] + [_I] * 6
        + [_P] for sfx in ("f32", "f64")},
+    **{f"paropt_phi_gram_batched_{sfx}": [_P] * 10 + [_I, _I, _I, _L]
+       + [_I] * 7 + [_L] * 6 + [_P] for sfx in ("f32", "f64")},
     "paropt_qn_roll_tile": [],
 }
 

@@ -9,7 +9,17 @@ Each of the three Pallas kernels has here:
   a CUDA tensor launches the kernel or raises — there is no fallback;
 - the plain PyTorch version of the same function;
 - a launch count in ``LAUNCHES``, raised by one where the wrapper launches
-  its kernel and nowhere else.
+  its kernel and nowhere else;
+- an instance-axis form (``*_batched``) for k solves run as one
+  (``solve_batched``): every operand carries a leading instance axis (a
+  shared operand may be an expanded view, stride 0) and the kernel runs
+  the kb instances in ONE launch, counted also in ``BATCHED_LAUNCHES``;
+  on the CPU it is the plain version under ``torch.vmap``.
+
+Each wrapper is a ``torch.library.custom_op`` whose vmap rule calls the
+instance-axis form, so ``torch.func.vmap`` over a solver step reaches the
+kernels with one launch per call whatever the instance count, and no
+batched tensor's ``data_ptr`` is ever read.
 
 The kernels live in ``paropt_torch/csrc`` (``qn_roll.cu``,
 ``quasi_def.cu``) and are built by ``_build.load_library`` on first use.
@@ -21,12 +31,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "qn_roll_update",
-           "qn_roll_update_plain", "quasi_def_apply", "quasi_def_apply_plain",
-           "phi_gram", "phi_gram_plain", "phi_gram_plan", "phi_gram_tile"]
+__all__ = ["LAUNCHES", "BATCHED_LAUNCHES", "reset_launches",
+           "qn_roll_update", "qn_roll_update_plain", "qn_roll_update_batched",
+           "quasi_def_apply", "quasi_def_apply_plain",
+           "quasi_def_apply_batched", "phi_gram", "phi_gram_plain",
+           "phi_gram_batched", "phi_gram_plan", "phi_gram_tile"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"qn_roll_update": 0, "quasi_def_apply": 0, "phi_gram": 0}
+# kernel name -> instance-axis launches (each also counted in LAUNCHES)
+BATCHED_LAUNCHES = dict(LAUNCHES)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 # phi_gram's shared memory: an SM has 228 KB, of which the runtime keeps
@@ -40,6 +54,7 @@ _PG_STAGES = 2            # phi_gram's ring of staged tiles (kPgStages)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        BATCHED_LAUNCHES[name] = 0
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -57,17 +72,47 @@ def _route(*tensors: torch.Tensor) -> str:
     return dev.type
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(name: str, fn, device: torch.device, *args,
+            batched: bool = False) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    if batched:
+        BATCHED_LAUNCHES[name] += 1
 
 
 def _lib():
     from ._build import load_library
     return load_library()
+
+
+def _inst(t: torch.Tensor):
+    """(tensor, instance stride in elements) of a [kb, ...] operand: an
+    operand shared by the instances (an expanded view, or kb = 1) passes
+    its first instance with stride 0, any other is made contiguous."""
+    if t.shape[0] == 1 or t.stride(0) == 0:
+        return t[0].contiguous(), 0
+    t = t.contiguous()
+    return t, t[0].numel()
+
+
+def _aligned_inst(*pairs) -> bool:
+    """Every instance of every (tensor, stride) operand starts on a
+    16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 and (st * t.element_size()) % 16 == 0
+               for t, st in pairs if t is not None)
+
+
+def _vmap_args(info, in_dims, *args):
+    """The operands of a vmap rule with the instance axis first (an
+    unbatched operand as an expanded view; None stays None)."""
+    kb = info.batch_size
+    return [None if a is None
+            else a.movedim(d, 0) if d is not None
+            else a.unsqueeze(0).expand((kb,) + tuple(a.shape))
+            for a, d in zip(args, in_dims)]
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +140,22 @@ def qn_roll_update_plain(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
     return out, dots
 
 
+def _per_instance(plain, *ops):
+    """A plain version over a leading instance axis: the single plain call
+    on each instance, stacked.  (One batched product would reduce in
+    another order: cuBLAS's f32 batched product over 2^20 terms was 1e4
+    times further from the f64 result than the single product.)"""
+    outs = [plain(*(None if o is None else o[i] for o in ops))
+            for i in range(ops[0].shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def qn_roll_update_plain_batched(buf, s, y, upd):
+    """`qn_roll_update_plain` over a leading instance axis: buf
+    [kb, 2m, n], s and y [kb, n], upd [kb]."""
+    return _per_instance(qn_roll_update_plain, buf, s, y, upd)
+
+
 def qn_roll_update(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
                    upd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused roll/select/dots over the stacked [2m, n] S/Y buffer
@@ -103,7 +164,8 @@ def qn_roll_update(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
     ``upd`` is a 0-d bool tensor on the buffer's device; the kernel reads it
     there (no host sync).  The roll is out of place: ``buf`` is unchanged.
     Returns (buf_out [2m, n], dots [2m, 2] in f32 for narrow storage, else
-    in the buffer's dtype)."""
+    in the buffer's dtype).  Under ``torch.func.vmap`` one call launches
+    the instance-axis kernel once (`qn_roll_update_batched`)."""
     _require(buf.dim() == 2 and buf.shape[0] % 2 == 0 and buf.shape[0] >= 2,
              f"buf must be [2m, n], got {tuple(buf.shape)}")
     rows, n = buf.shape
@@ -111,6 +173,15 @@ def qn_roll_update(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
              "s and y must be [n] matching buf")
     _require(upd.dim() == 0 and upd.dtype == torch.bool,
              "upd must be a 0-d bool tensor")
+    _route(buf, s, y, upd)
+    return _qn_roll_op(buf, s, y, upd)
+
+
+@torch.library.custom_op(
+    "paropt::qn_roll_update", mutates_args=(),
+    schema="(Tensor buf, Tensor s, Tensor y, Tensor upd) -> (Tensor, Tensor)")
+def _qn_roll_op(buf, s, y, upd):
+    rows, n = buf.shape
     if _route(buf, s, y, upd) == "cpu":
         return qn_roll_update_plain(buf, s, y, upd)
     _require(buf.dtype in _SUFFIX, f"unsupported buffer dtype {buf.dtype}")
@@ -131,6 +202,44 @@ def qn_roll_update(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
     return out, dots
 
 
+@_qn_roll_op.register_vmap
+def _qn_roll_vmap(info, in_dims, buf, s, y, upd):
+    return qn_roll_update_batched(*_vmap_args(info, in_dims, buf, s, y,
+                                              upd)), (0, 0)
+
+
+def qn_roll_update_batched(buf, s, y, upd):
+    """`qn_roll_update` for kb instances in one launch: buf [kb, 2m, n],
+    s and y [kb, n], upd [kb] bool (any operand may be an expanded view,
+    shared by the instances).  Returns (buf_out [kb, 2m, n], dots
+    [kb, 2m, 2]); instance i equals a single call on instance i's operands
+    bit for bit."""
+    _require(buf.dim() == 3 and buf.shape[1] % 2 == 0 and buf.shape[1] >= 2,
+             f"buf must be [kb, 2m, n], got {tuple(buf.shape)}")
+    kb, rows, n = buf.shape
+    _require(s.shape == (kb, n) and y.shape == (kb, n),
+             "s and y must be [kb, n] matching buf")
+    _require(upd.shape == (kb,) and upd.dtype == torch.bool,
+             "upd must be a [kb] bool tensor")
+    if _route(buf, s, y, upd) == "cpu":
+        return qn_roll_update_plain_batched(buf, s, y, upd)
+    _require(buf.dtype in _SUFFIX, f"unsupported buffer dtype {buf.dtype}")
+    (bb, sb), (sq, ss), (yq, sy), (ub, su) = (
+        _inst(t) for t in (buf, s.to(buf.dtype), y.to(buf.dtype), upd))
+    lib = _lib()
+    acc = _acc_dtype(buf.dtype)
+    nblocks = max(1, -(-n // lib.paropt_qn_roll_tile()))
+    out = torch.empty((kb, rows, n), dtype=buf.dtype, device=buf.device)
+    partials = torch.empty((kb, nblocks, rows, 2), dtype=acc,
+                           device=buf.device)
+    dots = torch.empty((kb, rows, 2), dtype=acc, device=buf.device)
+    fn = getattr(lib, f"paropt_qn_roll_update_batched_{_SUFFIX[buf.dtype]}")
+    _launch("qn_roll_update", fn, buf.device,
+            *(t.data_ptr() for t in (bb, sq, yq, ub, out, partials, dots)),
+            rows // 2, n, nblocks, kb, sb, ss, sy, su, batched=True)
+    return out, dots
+
+
 # ---------------------------------------------------------------------------
 # 2./3. quasi-definite apply (blocked_t, nwblock == 1) and the fused factor
 # ---------------------------------------------------------------------------
@@ -147,6 +256,20 @@ def quasi_def_apply_plain(dinv2, cwinv, vals_t, bx3, bw2=None):
     return yx, yw
 
 
+def quasi_def_apply_plain_batched(dinv2, cwinv, vals_t, bx3, bw2=None):
+    """`quasi_def_apply_plain` over a leading instance axis of every
+    operand."""
+    return _per_instance(quasi_def_apply_plain, dinv2, cwinv, vals_t, bx3,
+                         bw2)
+
+
+def phi_gram_plain_batched(dinv2, cwinv, vals_t, bx3, bw2=None,
+                           bx3_tail=None):
+    """`phi_gram_plain` over a leading instance axis of every operand."""
+    return _per_instance(phi_gram_plain, dinv2, cwinv, vals_t, bx3, bw2,
+                         bx3_tail)
+
+
 def phi_gram_plain(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     """The quasi-definite apply of the stack [bx3; bx3_tail] plus
     gram[a, b] = bx_a · yx_b."""
@@ -158,7 +281,9 @@ def phi_gram_plain(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     return yx, yw, gram
 
 
-def _check_qd(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail=None) -> str:
+def _check_shapes(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail=None) -> str:
+    """The operands' shapes and dtypes; returns the route ('cpu' or
+    'cuda').  Reads no pointer, so it runs on batched tensors too."""
     _require(dinv2.dim() == 2, "dinv must be [k, nwcon]")
     k, W = dinv2.shape
     _require(vals_t.shape == (k, W), "vals_t must be [k, nwcon]")
@@ -182,7 +307,15 @@ def _check_qd(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail=None) -> str:
     if route == "cuda":
         _require(dt in (torch.float32, torch.float64),
                  f"unsupported dtype {dt}")
-        _require(all(t.is_contiguous() for t in ops),
+    return route
+
+
+def _check_qd(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail=None) -> str:
+    route = _check_shapes(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+    if route == "cuda":
+        _require(all(t.is_contiguous() for t in
+                     (dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+                     if t is not None),
                  "all operands must be contiguous")
     return route
 
@@ -199,8 +332,19 @@ def quasi_def_apply(dinv2, cwinv, vals_t, bx3, bw2):
     """Fused solve of [[D, -Aw'], [Aw, C0]] [yx; yw] = [bx; bw] in the
     (nwblock=1, blocked_t) view (replaces `quasi_def_apply_blocked_t`,
     pallas_kernels.py:258-304).  Shapes: dinv2, vals_t [k, nwcon]; cwinv
-    [nwcon]; bx3 [K, k, nwcon]; bw2 [K, nwcon].  Returns (yx3, yw2)."""
+    [nwcon]; bx3 [K, k, nwcon]; bw2 [K, nwcon].  Returns (yx3, yw2).  Under
+    ``torch.func.vmap`` one call launches the instance-axis kernel once
+    (`quasi_def_apply_batched`)."""
     _require(bw2 is not None, "bw must be [K, nwcon]")
+    _check_shapes(dinv2, cwinv, vals_t, bx3, bw2)
+    return _quasi_def_op(dinv2, cwinv, vals_t, bx3, bw2)
+
+
+@torch.library.custom_op(
+    "paropt::quasi_def_apply", mutates_args=(),
+    schema="(Tensor dinv2, Tensor cwinv, Tensor vals_t, Tensor bx3, "
+           "Tensor bw2) -> (Tensor, Tensor)")
+def _quasi_def_op(dinv2, cwinv, vals_t, bx3, bw2):
     if _check_qd(dinv2, cwinv, vals_t, bx3, bw2) == "cpu":
         return quasi_def_apply_plain(dinv2, cwinv, vals_t, bx3, bw2)
     K, k, W = bx3.shape
@@ -212,6 +356,48 @@ def quasi_def_apply(dinv2, cwinv, vals_t, bx3, bw2):
     fn = getattr(_lib(), f"paropt_quasi_def_apply_{_SUFFIX[bx3.dtype]}")
     _launch("quasi_def_apply", fn, bx3.device,
             *(t.data_ptr() for t in ops), K, k, W, int(vec))
+    return yx, yw
+
+
+@_quasi_def_op.register_vmap
+def _quasi_def_vmap(info, in_dims, *args):
+    return quasi_def_apply_batched(*_vmap_args(info, in_dims, *args)), (0, 0)
+
+
+def _check_batched(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail=None) -> str:
+    """The checks of `_check_shapes` on [kb, ...] operands (the instance
+    axis leading every one)."""
+    _require(bx3.dim() == 4, "bx must be [kb, K, k, nwcon]")
+    kb = bx3.shape[0]
+    ops = [t for t in (dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+           if t is not None]
+    _require(all(t.shape[0] == kb for t in ops),
+             "every operand needs the same leading instance axis")
+    return _check_shapes(dinv2[0], cwinv[0], vals_t[0], bx3[0],
+                         None if bw2 is None else bw2[0],
+                         None if bx3_tail is None else bx3_tail[0])
+
+
+def quasi_def_apply_batched(dinv2, cwinv, vals_t, bx3, bw2):
+    """`quasi_def_apply` for kb instances in one launch: dinv2, vals_t
+    [kb, k, nwcon]; cwinv [kb, nwcon]; bx3 [kb, K, k, nwcon]; bw2
+    [kb, K, nwcon].  An operand the instances share (vals_t, unless a
+    sweep changes it) may be an expanded view: the kernel reads it with
+    stride 0.  Instance i equals a single call bit for bit."""
+    _require(bw2 is not None, "bw must be [kb, K, nwcon]")
+    if _check_batched(dinv2, cwinv, vals_t, bx3, bw2) == "cpu":
+        return quasi_def_apply_plain_batched(dinv2, cwinv, vals_t, bx3, bw2)
+    kb, K, k, W = bx3.shape
+    pairs = [_inst(t) for t in (dinv2, cwinv, vals_t, bx3, bw2)]
+    yx = torch.empty((kb, K, k, W), dtype=bx3.dtype, device=bx3.device)
+    yw = torch.empty((kb, K, W), dtype=bx3.dtype, device=bx3.device)
+    vec = (W % (16 // bx3.element_size()) == 0
+           and _aligned_inst(*pairs, (yx, K * k * W), (yw, K * W)))
+    fn = getattr(_lib(), f"paropt_quasi_def_apply_batched_"
+                         f"{_SUFFIX[bx3.dtype]}")
+    _launch("quasi_def_apply", fn, bx3.device,
+            *(t.data_ptr() for t, _ in pairs), yx.data_ptr(), yw.data_ptr(),
+            K, k, W, int(vec), kb, *(st for _, st in pairs), batched=True)
     return yx, yw
 
 
@@ -274,15 +460,24 @@ def phi_gram(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     `phi_gram_blocked_t`, pallas_kernels.py:210-255).  The stack is read as
     two row blocks (the factor setup's Z_qn rows, then A's), so the caller
     need not concatenate them; bw2 None means zero.
-    Returns (yx3 [B, k, nwcon], yw [B, nwcon], gram [B, B])."""
+    Returns (yx3 [B, k, nwcon], yw [B, nwcon], gram [B, B]).  Under
+    ``torch.func.vmap`` one call launches the instance-axis kernel once
+    (`phi_gram_batched`)."""
+    _check_shapes(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+    return _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+
+
+@torch.library.custom_op(
+    "paropt::phi_gram", mutates_args=(),
+    schema="(Tensor dinv2, Tensor cwinv, Tensor vals_t, Tensor bx3, "
+           "Tensor? bw2, Tensor? bx3_tail) -> (Tensor, Tensor, Tensor)")
+def _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
     if _check_qd(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail) == "cpu":
         return phi_gram_plain(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
     Btop, k, W = bx3.shape
     B = Btop + (0 if bx3_tail is None else bx3_tail.shape[0])
     plan = phi_gram_plan(B, k, bx3.element_size(), bw2 is not None)
-    ntiles = -(-W // plan.tile)
-    nblocks = max(1, min(ntiles,
-                         plan.blocks_per_sm * _sm_count(bx3.device)))
+    nblocks = phi_gram_grid(plan, W, bx3.device)
     kw = dict(dtype=bx3.dtype, device=bx3.device)
     yx = torch.empty((B, k, W), **kw)
     yw = torch.empty((B, W), **kw)
@@ -296,4 +491,49 @@ def phi_gram(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
                                 yw, partials, gram)),
             B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
             nblocks, int(vec))
+    return yx, yw, gram
+
+
+@_phi_gram_op.register_vmap
+def _phi_gram_vmap(info, in_dims, *args):
+    return phi_gram_batched(*_vmap_args(info, in_dims, *args)), (0, 0, 0)
+
+
+def phi_gram_grid(plan: PhiGramPlan, W: int, device) -> int:
+    """Blocks per instance of the persistent grid.  An instance-axis launch
+    keeps the single launch's plan (tile, slots) and block count for every
+    instance, the instances stacked on the grid's y axis: the per-instance
+    tile walk, and so every sum, is the single launch's."""
+    ntiles = -(-W // plan.tile)
+    return max(1, min(ntiles, plan.blocks_per_sm * _sm_count(device)))
+
+
+def phi_gram_batched(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
+    """`phi_gram` for kb instances in one launch: every operand of
+    `phi_gram` with a leading instance axis (dinv2, vals_t [kb, k, nwcon];
+    cwinv [kb, nwcon]; bx3 [kb, Btop, k, nwcon]; bx3_tail [kb, B2, k,
+    nwcon] or None; bw2 [kb, B, nwcon] or None), shared operands as
+    expanded views.  Returns (yx3 [kb, B, k, nwcon], yw [kb, B, nwcon],
+    gram [kb, B, B]); instance i equals a single call bit for bit."""
+    if _check_batched(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail) == "cpu":
+        return phi_gram_plain_batched(dinv2, cwinv, vals_t, bx3, bw2,
+                                      bx3_tail)
+    kb, Btop, k, W = bx3.shape
+    B = Btop + (0 if bx3_tail is None else bx3_tail.shape[1])
+    plan = phi_gram_plan(B, k, bx3.element_size(), bw2 is not None)
+    nblocks = phi_gram_grid(plan, W, bx3.device)
+    kw = dict(dtype=bx3.dtype, device=bx3.device)
+    yx = torch.empty((kb, B, k, W), **kw)
+    yw = torch.empty((kb, B, W), **kw)
+    partials = torch.empty((kb, nblocks, B, B), **kw)
+    gram = torch.empty((kb, B, B), **kw)
+    pairs = [(None, 0) if t is None else _inst(t)
+             for t in (dinv2, cwinv, vals_t, bx3, bx3_tail, bw2)]
+    vec = W % 4 == 0 and _aligned_inst(*pairs, (yx, B * k * W), (yw, B * W))
+    fn = getattr(_lib(), f"paropt_phi_gram_batched_{_SUFFIX[bx3.dtype]}")
+    _launch("phi_gram", fn, bx3.device,
+            *(_ptr(t) for t, _ in pairs),
+            *(t.data_ptr() for t in (yx, yw, partials, gram)),
+            B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
+            nblocks, int(vec), kb, *(st for _, st in pairs), batched=True)
     return yx, yw, gram

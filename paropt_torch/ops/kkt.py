@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..dtypes import resolve_device, resolve_dtype
-from ..tree import static_field, tmap
+from ..tree import pytree, static_field, tmap
 from . import kernels
 from .veclib import matmul
 
@@ -60,6 +60,7 @@ def detect_aw_layout(cols, n) -> str:
     return "gather"
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class IPVars:
     """Full primal-dual state; also used for steps and residuals."""
@@ -115,6 +116,7 @@ def zero_vars(n: int, ncon: int, nwcon: int, dtype=None,
                   sw=zw, tw=zw, zw=zw, zsw=zw, ztw=zw)
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class ProblemData:
     """Problem quantities at the current point.
@@ -142,7 +144,7 @@ class ProblemData:
 
     def __post_init__(self):
         if (self.Aw_layout == "blocked_t" and self.Aw_vals_t is None
-                and self.Aw_vals is not None):
+                and isinstance(self.Aw_vals, torch.Tensor)):
             object.__setattr__(self, "Aw_vals_t",
                                self.Aw_vals.T.contiguous())
 
@@ -237,6 +239,7 @@ def kkt_residual(v: IPVars, d: ProblemData, mu,
 # ---------------------------------------------------------------------------
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class KKTFactor:
     """Factored per-iteration KKT data."""

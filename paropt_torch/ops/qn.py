@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..dtypes import resolve_device, resolve_dtype
-from ..tree import static_field
+from ..tree import pytree, static_field
 from . import kernels
 from .veclib import dot, matmul
 
@@ -32,6 +32,7 @@ __all__ = ["QNState", "qn_init", "qn_reset", "qn_update", "qn_mult",
            "qn_compact", "default_storage_dtype", "resolve_subspace_size"]
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class QNState:
     """Fixed-shape limited-memory state.  ``buf`` may be stored narrower
@@ -178,6 +179,20 @@ def _new_b0(state: QNState, yTs, yTy, sTs):
     return torch.where(yTs > 0.0, val, state.b0)
 
 
+def _as_bool(flag, dev) -> torch.Tensor:
+    if isinstance(flag, torch.Tensor):
+        return flag.to(torch.bool)
+    return torch.as_tensor(flag, device=dev).to(torch.bool)
+
+
+def _roll_border(G, col, row):
+    """G rolled by (-1, -1) with its last column set to ``col`` and then
+    its last row to ``row``."""
+    inner = G[1:, 1:]
+    return torch.cat([torch.cat([inner, col[:-1, None]], dim=1),
+                      row[None, :]], dim=0)
+
+
 def qn_update(state: QNState, s: torch.Tensor, y: torch.Tensor,
               z0: Optional[torch.Tensor] = None, compact=None,
               accept=None) -> Tuple[QNState, torch.Tensor, torch.Tensor]:
@@ -249,7 +264,7 @@ def _qn_update(state: QNState, s, y, z0, compact, accept,
 
     upd = ~skip
     if accept is not None:
-        upd = upd & torch.as_tensor(accept, device=dev).to(torch.bool)
+        upd = upd & _as_bool(accept, dev)
 
     m = state.msub
     # narrow storage: re-apply the curvature gate to the QUANTIZED scalars
@@ -294,12 +309,11 @@ def _qn_update(state: QNState, s, y, z0, compact, accept,
         b0_new = torch.where(b0_new > 0.0, b0_new, state.b0)
 
     cnt_new = torch.clamp(state.count + 1, max=m)
-    SS_new = torch.roll(state.SS, shifts=(-1, -1), dims=(0, 1))
-    SS_new[-1, :] = Ss
-    SS_new[:, -1] = Ss
-    SY_new = torch.roll(state.SY, shifts=(-1, -1), dims=(0, 1))
-    SY_new[:, -1] = Sy
-    SY_new[-1, :] = Ys
+    # the rolled Gram matrices with the new pair in the last row and
+    # column, built out of place (a write into the rolled copy could not
+    # take a per-instance value under vmap when the old state is shared)
+    SS_new = _roll_border(state.SS, Ss, Ss)
+    SY_new = _roll_border(state.SY, Sy, Ys)
 
     new_state = dataclasses.replace(
         state, buf=buf_sel,
@@ -309,7 +323,7 @@ def _qn_update(state: QNState, s, y, z0, compact, accept,
         b0=torch.where(upd, b0_new, state.b0))
     if state.scaled and accept is not None:
         # a rejected step must not move the z0 refresh either
-        acc = torch.as_tensor(accept, device=dev).to(torch.bool)
+        acc = _as_bool(accept, dev)
         new_state = dataclasses.replace(
             new_state, z0=torch.where(acc, new_state.z0, z0_old))
     skip = skip | q_reject

@@ -21,8 +21,11 @@ package runs it as one ``lax.while_loop``, here it is a host loop that reads
 ``converged`` once per outer iteration, and the inner solves read the device
 once per line-search trial and once per step (``FusedTR.syncs``).
 
-Not ported yet: ``FusedTR.solve_batched`` and the eigenvalue row of the QP
-model.
+`FusedTR.solve_batched` runs k multi-start solves as one: the outer
+step's phases (`_tr_head`, the steering and QP solves, `_tr_tail`) under
+``torch.func.vmap``.
+
+Not ported yet: the eigenvalue row of the QP model.
 """
 
 from __future__ import annotations
@@ -38,11 +41,12 @@ from torch.profiler import record_function
 
 from .ip import HostSyncs, InteriorPoint
 from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
-                       _fused_solve_loop)
+                       _fused_solve_loop, _Run)
 from .ops import qn as qnmod
 from .ops.kkt import ProblemData
 from .ops.veclib import matmul
 from .problem import Problem
+from .tree import pytree, tmap
 from .utils.logging import TRLogger
 from .utils.options import OptionRegistry, make_options
 
@@ -1031,6 +1035,7 @@ class FusedTROptions(NamedTuple):
     nwinequality: int = 0
 
 
+@pytree
 @dataclasses.dataclass(frozen=True)
 class FusedTRState:
     """Outer-loop state: the linearization point and the TR machinery."""
@@ -1052,74 +1057,57 @@ class FusedTRState:
     rho: torch.Tensor          # last actual/model reduction ratio
 
 
-def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
-                   inf_model: ModelFns, qp_opts: FusedIPOptions,
-                   inf_opts: FusedIPOptions, to: FusedTROptions,
-                   lbv, ubv, d_tmpl: ProblemData, params_user,
-                   state: FusedTRState, host=bool) -> FusedTRState:
-    """One SL1QP outer iteration (`sl1qpOptimize` loop body +
-    `sl1qpUpdate`, `ParOptTrustRegion.cpp:1544-1671, 1231-1452`).
-    ``host`` reads a device flag on the host (the inner solves' reads)."""
-    xk, fk, ck, gk, Ak, cwk = (state.xk, state.fk, state.ck, state.gk,
-                               state.Ak, state.cwk)
-    dt = xk.dtype
-    dev = xk.device
-    kw = dict(dtype=dt, device=dev)
-    ncon = ck.shape[0]
-    nwcon = d_tmpl.nwcon
-    nineq = to.ninequality
-    idx = torch.arange(ncon, device=dev)
-    zero = torch.zeros((), **kw)
+class _TRHead(NamedTuple):
+    """An outer TR iteration up to its inner solves."""
+    lk: torch.Tensor         # the trust-region box about xk
+    uk: torch.Tensor
+    p0: torch.Tensor         # the inner solves' start
+    params: QPParams         # the QP model (its sparse pattern left out)
+    gamma_s: torch.Tensor    # the QP solve's elastic penalties
+    gamma_t: torch.Tensor
 
+
+def _tr_head(to: FusedTROptions, lbv, ubv, state: FusedTRState) -> _TRHead:
+    """The trust-region bounds and the QP model of an outer iteration."""
+    xk = state.xk
+    zero = torch.zeros((), dtype=xk.dtype, device=xk.device)
+    ncon = state.ck.shape[0]
+    idx = torch.arange(ncon, device=xk.device)
     # -- trust-region bounds (`initModelAndBounds`/`setTrustRegionBounds`) --
     lk = torch.maximum(-state.tr_size, lbv - xk)
     uk = torch.minimum(state.tr_size, ubv - xk)
-    p0 = 0.5 * (lk + uk)
-
     # compact quasi-Newton pieces of the QP objective
     if state.qn is not None:
         b0, Z, M = qnmod.qn_compact(state.qn)
     else:
         b0, Z, M = zero + 1.0, None, None
-    params = QPParams(fk=fk, gk=gk, ck=ck, Ak=Ak, cwk=cwk,
-                      Aw_cols=d_tmpl.Aw_cols, Aw_vals=d_tmpl.Aw_vals,
-                      b0=b0, Z=Z, M=M, obj_scale=zero + 1.0)
+    params = QPParams(fk=state.fk, gk=state.gk, ck=state.ck, Ak=state.Ak,
+                      cwk=state.cwk, Aw_cols=None, Aw_vals=None, b0=b0, Z=Z,
+                      M=M, obj_scale=zero + 1.0)
+    return _TRHead(lk=lk, uk=uk, p0=0.5 * (lk + uk), params=params,
+                   gamma_s=torch.where(idx < to.ninequality, 0.0,
+                                       state.gamma),
+                   gamma_t=state.gamma)
 
-    # -- steering infeasibility solve (`minimizeInfeas`) --------------------
-    if to.adaptive_gamma:
-        gamma_big = max(1e6, 1e2 * to.gamma_max)
-        inf_params = params._replace(obj_scale=zero + 1.0 / gamma_big)
-        ones = torch.ones(ncon, **kw)
-        ones_w = torch.ones(nwcon, **kw)
-        d_inf = dataclasses.replace(
-            d_tmpl, lb=lk, ub=uk,
-            gamma_s=torch.where(idx < nineq, 0.0, ones), gamma_t=ones,
-            gamma_sw=torch.where(torch.arange(nwcon, device=dev)
-                                 < to.nwinequality, 0.0, ones_w),
-            gamma_tw=ones_w)
-        with record_function("paropt.tr.steer"):
-            st_inf0 = _fused_init(inf_model, inf_opts, p0, d_inf, inf_params,
-                                  None, None)
-            st_inf = _fused_solve_loop(inf_model, inf_opts, st_inf0, d_inf,
-                                       inf_params, None, host)
-        c_best = (ck + Ak @ st_inf.vars.x) if ncon else ck
+
+def _tr_tail(user_model: ModelFns, to: FusedTROptions, lbv, ubv,
+             d_tmpl: ProblemData, params_user, state: FusedTRState,
+             head: _TRHead, p_inf, inf_iters, p, z, zw,
+             qp_iters) -> FusedTRState:
+    """The outer iteration after its inner solves: the model reductions,
+    the trial evaluation and QN update, acceptance and the radius, the
+    penalties and the KKT error (`sl1qpUpdate`)."""
+    xk, fk, ck, gk, Ak, cwk = (state.xk, state.fk, state.ck, state.gk,
+                               state.Ak, state.cwk)
+    zero = torch.zeros((), dtype=xk.dtype, device=xk.device)
+    ncon = ck.shape[0]
+    nwcon = d_tmpl.nwcon
+    nineq = to.ninequality
+    if p_inf is not None:
+        c_best = (ck + Ak @ p_inf) if ncon else ck
         best_con_infeas = _viol(c_best, nineq)
-        inf_iters = st_inf.k
     else:
-        best_con_infeas = torch.zeros(ncon, **kw)
-        inf_iters = torch.zeros((), dtype=torch.int32, device=dev)
-
-    # -- QP subproblem solve (IP-on-QP, the hot loop) ------------------------
-    d_qp = dataclasses.replace(
-        d_tmpl, lb=lk, ub=uk,
-        gamma_s=torch.where(idx < nineq, 0.0, state.gamma),
-        gamma_t=state.gamma)
-    compact = (b0, Z, M)
-    with record_function("paropt.tr.qp"):
-        st0 = _fused_init(qp_model, qp_opts, p0, d_qp, params, None, compact)
-        st = _fused_solve_loop(qp_model, qp_opts, st0, d_qp, params, compact,
-                               host)
-    p, z, zw = st.vars.x, st.vars.z, st.vars.zw
+        best_con_infeas = torch.zeros_like(ck)
 
     # -- model reductions (`sl1qpUpdate`) ------------------------------------
     gam = state.gamma
@@ -1127,7 +1115,7 @@ def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
     cm = (ck + Ak @ p) if ncon else ck
     fm = fk + torch.dot(gk, p)
     if state.qn is not None:
-        fm = fm + 0.5 * torch.dot(p, _qp_Bp(params, p))
+        fm = fm + 0.5 * torch.dot(p, _qp_Bp(head.params, p))
     obj_reduc = fk - fm
     infeas_model = torch.sum(gam * _viol(cm, nineq)) if ncon else zero
 
@@ -1225,8 +1213,86 @@ def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
     return FusedTRState(
         xk=xk_n, fk=fk_n, ck=ck_n, gk=gk_n, Ak=Ak_n, cwk=cwk_n, qn=qn_new,
         tr_size=tr_n, gamma=gamma_n, k=state.k + 1,
-        subiters=state.subiters + st.k + inf_iters, converged=converged,
+        subiters=state.subiters + qp_iters + inf_iters, converged=converged,
         infeas=infeas_new, l1=l1, linf=linf, rho=rho)
+
+
+def _inner_solve(model: ModelFns, opts: FusedIPOptions, R: _Run, x0,
+                 d: ProblemData, da, params: QPParams, compact, frozen):
+    """One inner IP solve of the TR step (steering or QP); in a batch the
+    ``frozen`` instances (already converged) start it converged."""
+    pa = params._replace(
+        **{f: (None if f in ("Aw_cols", "Aw_vals", "eig_M", "eig_h")
+               else 0) for f in QPParams._fields})
+    ca = None if compact is None else 0
+    st0 = R.call(functools.partial(_fused_init, model, opts),
+                 (0, da, pa, None, ca), x0, d, params, None, compact)
+    if R.batched:
+        st0 = dataclasses.replace(st0, converged=frozen)
+    return _fused_solve_loop(model, opts, st0, d, params, compact, R.host,
+                             run=R, axes=(da, pa, ca))
+
+
+def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
+                   inf_model: ModelFns, qp_opts: FusedIPOptions,
+                   inf_opts: FusedIPOptions, to: FusedTROptions,
+                   lbv, ubv, d_tmpl: ProblemData, params_user,
+                   state: FusedTRState, host=bool,
+                   run: Optional[_Run] = None) -> FusedTRState:
+    """One SL1QP outer iteration (`sl1qpOptimize` loop body +
+    `sl1qpUpdate`, `ParOptTrustRegion.cpp:1544-1671, 1231-1452`).
+    ``host`` reads a device flag on the host (the inner solves' reads).  A
+    batched ``run`` steps k instances, the inner solves batched."""
+    R = run or _Run(host)
+    dev = state.xk.device
+    kw = dict(dtype=state.xk.dtype, device=dev)
+    ncon, nwcon = d_tmpl.ncon, d_tmpl.nwcon
+    head = R.call(functools.partial(_tr_head, to, lbv, ubv), (0,), state)
+    params = head.params._replace(Aw_cols=d_tmpl.Aw_cols,
+                                  Aw_vals=d_tmpl.Aw_vals)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    frozen = state.converged if R.batched else None
+    # the instance axes of the inner solves' data: the box is per instance
+    none = tmap(lambda _: None, d_tmpl)
+
+    # -- steering infeasibility solve (`minimizeInfeas`) --------------------
+    p_inf = None
+    inf_iters = zero_i
+    if to.adaptive_gamma:
+        gamma_big = max(1e6, 1e2 * to.gamma_max)
+        inf_params = params._replace(
+            obj_scale=torch.full_like(params.obj_scale, 1.0 / gamma_big))
+        ones = torch.ones(ncon, **kw)
+        ones_w = torch.ones(nwcon, **kw)
+        idx = torch.arange(ncon, device=dev)
+        d_inf = dataclasses.replace(
+            d_tmpl, lb=head.lk, ub=head.uk,
+            gamma_s=torch.where(idx < to.ninequality, 0.0, ones),
+            gamma_t=ones,
+            gamma_sw=torch.where(torch.arange(nwcon, device=dev)
+                                 < to.nwinequality, 0.0, ones_w),
+            gamma_tw=ones_w)
+        with record_function("paropt.tr.steer"):
+            st_inf = _inner_solve(
+                inf_model, inf_opts, R, head.p0, d_inf,
+                dataclasses.replace(none, lb=0, ub=0), inf_params, None,
+                frozen)
+        p_inf, inf_iters = st_inf.vars.x, st_inf.k
+
+    # -- QP subproblem solve (IP-on-QP, the hot loop) ------------------------
+    d_qp = dataclasses.replace(d_tmpl, lb=head.lk, ub=head.uk,
+                               gamma_s=head.gamma_s, gamma_t=head.gamma_t)
+    compact = (params.b0, params.Z, params.M)
+    with record_function("paropt.tr.qp"):
+        st = _inner_solve(qp_model, qp_opts, R, head.p0, d_qp,
+                          dataclasses.replace(none, lb=0, ub=0, gamma_s=0,
+                                              gamma_t=0),
+                          params, compact, frozen)
+    v = st.vars
+    return R.call(functools.partial(_tr_tail, user_model, to, lbv, ubv,
+                                    d_tmpl, params_user),
+                  (0, 0, None if p_inf is None else 0, 0, 0, 0, 0, 0),
+                  state, head, p_inf, inf_iters, v.x, v.z, v.zw, st.k)
 
 
 class FusedTR:
@@ -1337,6 +1403,7 @@ class FusedTR:
             linf=zero + float("inf"), rho=zero)
         self.syncs = HostSyncs()
         self._to = to
+        self._ev, self._gr = ev, gr
         self._problem = problem
         self._write_freq = o["tr_write_output_frequency"]
         self._step = functools.partial(
@@ -1371,6 +1438,40 @@ class FusedTR:
         return result, state
 
     def solve_batched(self, x0_batch, chunk="auto"):
-        raise NotImplementedError(
-            "FusedTR.solve_batched is not ported yet (ROADMAP queue 1 "
-            "item 8)")
+        """k multi-start solves as one (paropt_tpu/tr.py:1419-1455): each
+        instance's initial linearization (f, c, cw, g, A at its x0) is
+        built under ``torch.func.vmap``, and so are the outer step's phases
+        and its inner solves; one host read of "every instance converged"
+        per outer iteration, and an instance that has converged keeps its
+        state bit for bit while the others iterate.
+
+        ``x0_batch``: [k, n] starting points.  ``chunk``: "auto" or None,
+        both the whole loop (the watchdog chunking is not ported).  Returns
+        (results, states): ``results`` holds per-instance numpy arrays of
+        fobj, converged, niter, infeas, l1 and linfty (and x [k, n]);
+        ``states`` is the `FusedTRState` with a leading k axis."""
+        if chunk not in ("auto", None):
+            raise NotImplementedError("the chunked solve is not ported yet")
+        run = _Run(self.syncs, batched=True)
+        s0 = self._state0
+        x0_batch = torch.as_tensor(x0_batch, dtype=s0.xk.dtype,
+                                   device=s0.xk.device)
+
+        def start(st, x):
+            f0, c0, cw0 = self._ev((), x)
+            g0, A0 = self._gr((), x)
+            return dataclasses.replace(st, xk=x, fk=f0, ck=c0, gk=g0, Ak=A0,
+                                       cwk=cw0)
+
+        state = run.call(start, (None, 0), s0, x0_batch)
+        for _ in range(self._to.max_iterations):
+            new = self._step(state, run=run)
+            state = run.freeze(state.converged, new, state)
+            if run.all(state.converged):
+                break
+        results = {"x": state.xk,
+                   **{key: getattr(state, f).cpu().numpy() for key, f in (
+                       ("fobj", "fk"), ("converged", "converged"),
+                       ("niter", "k"), ("infeas", "infeas"), ("l1", "l1"),
+                       ("linfty", "linf"))}}
+        return results, state

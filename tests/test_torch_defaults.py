@@ -166,3 +166,47 @@ def test_3d_constructors_stay_on_the_device_and_turn_tf32_off(make):
     assert x0.device.type == "cpu"
     f = _on_meta_default(lambda: prob.objective(x0))
     assert f.device.type == "cpu" and torch.isfinite(f)
+
+
+def _batched_route(route, device):
+    """Two instances, one iteration, of a ``solve_batched`` route on
+    SyntheticTopology(64) made on ``device`` (None: the default)."""
+    from paropt_torch.mma import FusedMMA
+    from paropt_torch.tr import FusedTR
+    prob = topology.SyntheticTopology(n=64, block=8, dtype=torch.float64,
+                                      device=device)
+    x0, _, _ = prob.get_vars_and_bounds()
+    x0s = torch.stack([x0, 0.5 * x0])
+    if route == "ip":
+        fused = ip_fused.FusedIP(ip_fused.model_from_problem(prob), 64, 1,
+                                 prob.nwcon, 1,
+                                 ip_fused.FusedIPOptions(
+                                     use_quasi_newton_update=True),
+                                 dtype=torch.float64)
+        data, _ = ip_fused.data_template_from_problem(prob,
+                                                      dtype=torch.float64)
+        qn0 = qn.qn_init(4, 64, dtype=torch.float64, device=x0.device)
+        return _on_meta_default(lambda: fused.solve_batched(
+            x0s, data, (), qn0, max_iters=1)).vars.x
+    opts = {"output_file": None, "tr_output_file": None,
+            "mma_output_file": None, "tr_max_iterations": 1,
+            "mma_max_iterations": 1, "dtype": "float64"}
+    solver = (FusedMMA if route == "mma" else FusedTR)(prob, opts)
+    return _on_meta_default(lambda: solver.solve_batched(x0s))[0]["x"]
+
+
+@pytest.mark.parametrize("route", ["ip", "mma", "tr"])
+def test_batched_route_makes_no_tensor_off_the_problem_device(route):
+    x = _batched_route(route, "cpu")
+    assert x.shape == (2, 64) and x.device.type == "cpu"
+
+
+@pytest.mark.parametrize("route", ["ip", "mma", "tr"])
+def test_batched_route_without_device_aims_at_the_card(route):
+    """A batched solve whose problem is given no device runs on the card;
+    without one, PyTorch's own error, and no CPU fallback."""
+    if torch.cuda.is_available():
+        assert _batched_route(route, None).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            _batched_route(route, None)

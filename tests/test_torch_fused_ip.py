@@ -270,9 +270,10 @@ def test_unported_paths_raise_and_tf32_is_off():
     tf = tip.FusedIP(model, 64, 1, 8, 1, tip.FusedIPOptions())
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    with pytest.raises(NotImplementedError):
-        tf.solve_batched(None, None)
     td, x0 = tip.data_template_from_problem(tp, dtype=torch.float64)
+    # the batched solve is ported: one step of two instances
+    st = tf.solve_batched(torch.stack([x0, 0.5 * x0]), td, max_iters=1)
+    assert st.vars.x.shape == (2, 64) and st.k.tolist() == [1, 1]
     with pytest.raises(NotImplementedError):
         tf.solve(x0, td, (), chunk=4)
 

@@ -216,3 +216,162 @@ def test_cuda_nk_solve_matches_the_cpu(cuda):
     assert all(n > 0 for n in lc.values()), lc
     assert not any(lh.values())
     assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])
+
+
+# ---------------------------------------------------------------------------
+# the instance axis (k solves run as one, `solve_batched`)
+# ---------------------------------------------------------------------------
+
+KB = 4
+
+
+def _stack_inputs(B, k, nwcon, dtype, device, shared_vals):
+    """kb instances of the quasi-definite operands; with ``shared_vals``
+    vals_t is one [k, nwcon] array expanded over the instances (stride 0),
+    as a batched solve passes it."""
+    per = [qd_inputs(B, k, nwcon, seed=17 * i + B) for i in range(KB)]
+    ops = [torch.stack([torch.as_tensor(p[j], dtype=dtype, device=device)
+                        for p in per]) for j in range(5)]
+    if shared_vals:
+        ops[2] = ops[2][0].expand(KB, k, nwcon)
+    return ops
+
+
+def _bitwise(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_cuda_qn_roll_instance_axis(cuda, dtype):
+    """One launch over kb = 4 instances: against the plain version batched,
+    bit-equal to 4 single launches, at kb = 1 bit-equal to the single
+    launch, and with a buffer shared by the instances (stride 0)."""
+    cdt = torch.float64 if dtype == torch.float64 else torch.float32
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    buf = torch.randn(KB, 20, 5000, device=cuda, dtype=cdt,
+                      generator=gen).to(dtype)
+    s = torch.randn(KB, 5000, device=cuda, dtype=cdt, generator=gen)
+    y = torch.randn(KB, 5000, device=cuda, dtype=cdt, generator=gen)
+    upd = torch.tensor([True, False, True, True], device=cuda)
+    before = dict(kernels.BATCHED_LAUNCHES)
+    got = kernels.qn_roll_update_batched(buf, s, y, upd)
+    assert kernels.BATCHED_LAUNCHES["qn_roll_update"] == \
+        before["qn_roll_update"] + 1
+    want = kernels.qn_roll_update_plain_batched(buf, s, y, upd)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert torch.equal(got[0], want[0])
+    assert_close(got[1], want[1], rtol=rtol,
+                 atol=rtol * float(want[1].abs().max()))
+    for i in range(KB):
+        one = kernels.qn_roll_update(buf[i], s[i], y[i], upd[i])
+        assert _bitwise((got[0][i], got[1][i]), one)
+    one = kernels.qn_roll_update_batched(buf[:1], s[:1], y[:1], upd[:1])
+    assert _bitwise((one[0][0], one[1][0]),
+                    kernels.qn_roll_update(buf[0], s[0], y[0], upd[0]))
+    shared = kernels.qn_roll_update_batched(buf[0].expand(KB, 20, 5000), s,
+                                            y, upd)
+    for i in range(KB):
+        assert _bitwise((shared[0][i], shared[1][i]),
+                        kernels.qn_roll_update(buf[0], s[i], y[i], upd[i]))
+    # under torch.func.vmap: one instance-axis launch
+    before = kernels.LAUNCHES["qn_roll_update"]
+    vm = torch.func.vmap(kernels.qn_roll_update)(buf, s, y, upd)
+    assert kernels.LAUNCHES["qn_roll_update"] == before + 1
+    assert _bitwise(vm, got)
+
+
+@pytest.mark.parametrize("shared_vals", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,k,nwcon", [(1, 8, 4096), (21, 8, 1000),
+                                       (3, 13, 1001)])
+def test_cuda_quasi_def_instance_axis(cuda, K, k, nwcon, dtype,
+                                      shared_vals):
+    ops = _stack_inputs(K, k, nwcon, dtype, cuda, shared_vals)
+    got = kernels.quasi_def_apply_batched(*ops)
+    _held_to_plain(got, kernels.quasi_def_apply_plain_batched(*ops), dtype)
+    for i in range(KB):
+        assert _bitwise((got[0][i], got[1][i]),
+                        kernels.quasi_def_apply(*(o[i] for o in ops)))
+    one = kernels.quasi_def_apply_batched(*(o[:1] for o in ops))
+    assert _bitwise((one[0][0], one[1][0]),
+                    kernels.quasi_def_apply(*(o[0] for o in ops)))
+    before = kernels.LAUNCHES["quasi_def_apply"]
+    vm = torch.func.vmap(kernels.quasi_def_apply,
+                         in_dims=(0, 0, None if shared_vals else 0, 0, 0))(
+        ops[0], ops[1], ops[2][0] if shared_vals else ops[2], ops[3],
+        ops[4])
+    assert kernels.LAUNCHES["quasi_def_apply"] == before + 1
+    assert _bitwise(vm, got)
+
+
+@pytest.mark.parametrize("shared_vals", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,k,nwcon", [(21, 8, 4096), (21, 8, 1000),
+                                       (7, 13, 1001)])
+def test_cuda_phi_gram_instance_axis(cuda, B, k, nwcon, dtype, shared_vals):
+    """With bw and the stack whole, and as the factor setup calls it (two
+    row blocks, bw = 0)."""
+    dinv, cwinv, vals, bx, bw = _stack_inputs(B, k, nwcon, dtype, cuda,
+                                              shared_vals)
+    top = B - 1
+    for args in ((dinv, cwinv, vals, bx, bw, None),
+                 (dinv, cwinv, vals, bx[:, :top], None, bx[:, top:])):
+        got = kernels.phi_gram_batched(*args)
+        _held_to_plain(got, kernels.phi_gram_plain_batched(*args), dtype)
+        for i in range(KB):
+            one = kernels.phi_gram(*(None if a is None else a[i]
+                                     for a in args))
+            assert _bitwise((g[i] for g in got), one)
+        one = kernels.phi_gram_batched(*(None if a is None else a[:1]
+                                         for a in args))
+        assert _bitwise((g[0] for g in one),
+                        kernels.phi_gram(*(None if a is None else a[0]
+                                           for a in args)))
+    before = kernels.LAUNCHES["phi_gram"]
+    vm = torch.func.vmap(kernels.phi_gram,
+                         in_dims=(0, 0, 0, 0, None, 0))(*args)
+    assert kernels.LAUNCHES["phi_gram"] == before + 1
+    assert _bitwise(vm, got)
+
+
+def test_cuda_batched_solves_launch_the_instance_axis_and_match_host(cuda):
+    """`FusedIP.solve_batched` and `FusedTR.solve_batched` on
+    SyntheticTopology(4096) in float64, k = 3: on the card every kernel
+    launch is an instance-axis launch and the card run takes the host run's
+    iterations, fobj to 1e-9 per instance."""
+    import numpy as np
+    from paropt_torch import ip_fused
+    from paropt_torch.ops import qn
+    n = 4096
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = SyntheticTopology(n=n, block=8, dtype=torch.float64,
+                                 device=dev)
+        x0, _, _ = prob.get_vars_and_bounds()
+        rng = np.random.default_rng(0)
+        x0s = x0[None] * torch.as_tensor(rng.uniform(0.5, 1.5, (3, n)),
+                                         device=dev)
+        kernels.reset_launches()
+        fused = ip_fused.FusedIP(
+            ip_fused.model_from_problem(prob), n, 1, prob.nwcon, 1,
+            ip_fused.FusedIPOptions(use_quasi_newton_update=True,
+                                    abs_res_tol=1e-6), dtype=torch.float64)
+        data, _ = ip_fused.data_template_from_problem(prob,
+                                                      dtype=torch.float64)
+        st = fused.solve_batched(x0s, data, (),
+                                 qn.qn_init(10, n, dtype=torch.float64,
+                                            device=dev))
+        res, _ = FusedTR(prob, {"tr_output_file": None, "output_file": None,
+                                "tr_max_iterations": 4,
+                                "abs_res_tol": 1e-8}).solve_batched(x0s)
+        out[dev.type] = (st.k.tolist(), st.fobj.cpu().numpy(),
+                         res["niter"], res["fobj"], dict(kernels.LAUNCHES),
+                         dict(kernels.BATCHED_LAUNCHES))
+    kc, fc, tnc, tfc, lc, bc = out["cuda"]
+    kh, fh, tnh, tfh, lh, _ = out["cpu"]
+    assert all(n > 0 for n in lc.values()) and lc == bc, (lc, bc)
+    assert not any(lh.values())
+    assert kc == kh and list(tnc) == list(tnh)
+    np.testing.assert_allclose(fc, fh, rtol=1e-9)
+    np.testing.assert_allclose(tfc, tfh, rtol=1e-9)

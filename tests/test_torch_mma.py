@@ -321,8 +321,9 @@ def test_write_output_cadence_and_unported_paths():
     assert calls == [1, 5, 10]
     with pytest.raises(NotImplementedError):
         solver.solve(checkpoint_path="state.pt")
-    with pytest.raises(NotImplementedError):
-        solver.solve_batched(None)
+    # solve_batched is ported; its chunked form is not
+    with pytest.raises(NotImplementedError, match="chunked"):
+        solver.solve_batched(None, chunk=3)
     # the base class's no-op write_output costs no hook
     from paropt_torch.utils.chunked import user_write_output
     assert user_write_output(TFEM(8, 4, cg_iters=10, dtype=F64,

@@ -308,9 +308,9 @@ def test_kernel_routes_per_solve(monkeypatch):
                             counting(name, getattr(kernels, name)))
     real_loop, real_update = ttr._fused_solve_loop, tqn._qn_update
 
-    def loop(model, opts, state, *args):
+    def loop(model, opts, state, *args, **kwargs):
         phase = "steer" if opts.sequential_linear_method else "qp"
-        out = real_loop(model, opts, state, *args)
+        out = real_loop(model, opts, state, *args, **kwargs)
         calls["solves"].setdefault(phase, []).append(int(out.k))
         calls["phase"] = None
         return out
@@ -379,8 +379,9 @@ def test_write_output_cadence_and_unported_paths():
     assert calls == [(1, (64,)), (5, (64,)), (10, (64,))]
     with pytest.raises(NotImplementedError):
         fus.solve(checkpoint_path="state.pt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        fus.solve_batched(torch.zeros((2, 64), dtype=F64))
+    # solve_batched is ported; its chunked form is not
+    with pytest.raises(NotImplementedError, match="chunked"):
+        fus.solve_batched(torch.zeros((2, 64), dtype=F64), chunk=4)
     st = fus._state0
     zero = torch.zeros((), dtype=F64)
     params = ttr.QPParams(fk=st.fk, gk=st.gk, ck=st.ck, Ak=st.Ak,
