@@ -179,12 +179,6 @@ def _new_b0(state: QNState, yTs, yTy, sTs):
     return torch.where(yTs > 0.0, val, state.b0)
 
 
-def _as_bool(flag, dev) -> torch.Tensor:
-    if isinstance(flag, torch.Tensor):
-        return flag.to(torch.bool)
-    return torch.as_tensor(flag, device=dev).to(torch.bool)
-
-
 def _roll_border(G, col, row):
     """G rolled by (-1, -1) with its last column set to ``col`` and then
     its last row to ``row``."""
@@ -264,7 +258,7 @@ def _qn_update(state: QNState, s, y, z0, compact, accept,
 
     upd = ~skip
     if accept is not None:
-        upd = upd & _as_bool(accept, dev)
+        upd = upd & torch.as_tensor(accept, device=dev).to(torch.bool)
 
     m = state.msub
     # narrow storage: re-apply the curvature gate to the QUANTIZED scalars
@@ -323,7 +317,7 @@ def _qn_update(state: QNState, s, y, z0, compact, accept,
         b0=torch.where(upd, b0_new, state.b0))
     if state.scaled and accept is not None:
         # a rejected step must not move the z0 refresh either
-        acc = _as_bool(accept, dev)
+        acc = torch.as_tensor(accept, device=dev).to(torch.bool)
         new_state = dataclasses.replace(
             new_state, z0=torch.where(acc, new_state.z0, z0_old))
     skip = skip | q_reject
