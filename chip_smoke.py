@@ -52,8 +52,8 @@ Phases (any failure raises and exits nonzero without the final line):
    solver="mgcg"), float32, 60 outer iterations; fobj must fall in
    bench.py's band (0.10, 0.18) with infeasibility < 1e-8;
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
-   cg_iters 25) for 10 outer iterations and on DMOFEMTopology(12, 6,
-   cg_iters 120) for 8 (cut from 20 and 15), once with CUDA tensors and
+   cg_iters 25) for 6 outer iterations and on DMOFEMTopology(12, 6,
+   cg_iters 120) for 5 (cut from 20 and 15), once with CUDA tensors and
    once on the CPU: the
    same outer and inner iteration counts, fobj within 1e-9 relative;
 9. TR at full width: FusedTR (bench.py's TR options: 20 outer iterations,
@@ -163,11 +163,12 @@ call with its instance axis):
    ways, peak memory, launches, and one float32 batched step under
    torch.profiler;
 22. scripts/bench_batched.py's defaults: n = 4096, k = 32, tol 1e-4,
-   float32: the batched solve against 32 sequential single solves, wall
-   time both ways and their ratio (recorded, not claimed); the same
-   convergence flags and fobj within 1e-5;
+   float32: the batched solve against sequential single solves of its
+   first 8 instances (cut from all 32), wall time per solve both ways and
+   their ratio (recorded, not claimed); the same convergence flags and
+   fobj within 1e-5;
 23. batched MMA at full width: FEMTopology(768, 384, mgcg), k = 4 starts
-   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 10 outer
+   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 6 outer
    iterations (a depth cut): infeasibility < 1e-6 for every instance, no
    kernel launched, instance 1 printed beside its single solve and the
    float32 floor.  float64, 3 outer iterations: instance 1 equal to its
@@ -181,12 +182,49 @@ call with its instance axis):
    iterations, instance 2 equal to its single solve (fobj within 1e-5);
 25. card against host in float64: the three batched solves at the CPU
    tests' sizes (SyntheticTopology(256); FEM 8x4), depths cut (the IP to
-   60 steps, the MMA and TR to 6 and 4 outer iterations), on the card and
+   60 steps, the MMA and TR to 4 and 3 outer iterations), on the card and
    on the CPU: equal counts, fobj within 1e-12 relative per instance.
 
 The kernels line also carries each kernel's launches in phase 21
 (batched_launches) and in phase 24's n = 2^20 batch
 (batched_tr_launches), and its phase-3b error and times.
+
+Phases 26-28 run the eigenvalue path (LOBPCG, the frequency models,
+FusedEigenTR and the host EigenSubproblem); each prints its wall seconds:
+
+26. the 3-D eigen flagship at full width: FrequencyTopology3D(64, 32, 32,
+   N=6, cg_iters=30, solver="mgcg", lobpcg_iters=60) in float32, 65,536
+   design variables and 212,355 dofs, through
+   build_fused_tr({"tr_max_iterations": 1}) and 6 calls of
+   solve(state0=...), each resuming the last (3 outer iterations, cut from
+   the flagship's 40).  It prints the construction seconds and the
+   lam_target calibration's LOBPCG block iterations, ks_rho/lam_target^2
+   (paropt_tpu measured 5.37e10), seconds and host reads per outer
+   iteration, LOBPCG block iterations per eigensolve (cold and warm), peak
+   memory, and one further outer iteration under torch.profiler split by
+   the paropt.eig.lobpcg, paropt.tr.steer, paropt.tr.qp, paropt.tr.eval
+   and paropt.tr.qn_update ranges.  Checks: every iterate, fobj and rho
+   finite; fobj below its start of 1.0; qn_roll_update launched once per
+   outer iteration and quasi_def_apply and phi_gram never (the frequency
+   problems have no sparse constraints, nwcon = 0, so no inner solve has a
+   quasi-definite block to solve; the reason is printed);
+27. bench.py's eigen-TR configuration: FrequencyTopology(24, 12, N=4,
+   cg_iters=25, solver="mgcg", lobpcg_iters=50) with bench.py:290-297's
+   options, float32, 20 outer iterations; fobj must fall in bench.py's
+   band (0.25, 0.35) with infeasibility < 2e-3 (printed beside
+   paropt_tpu's 6.9e-4), and only qn_roll_update may launch; it prints
+   outer iterations/s;
+28. card against host in float64: FusedEigenTR on FrequencyTopology(8, 4,
+   N=3, mgcg) (4 outer iterations) and on FrequencyTopology3D(4, 3, 2,
+   N=3, Jacobi CG 120) (4; ny != nz, since a box symmetric in y and z has
+   a double lowest eigenvalue whose basis each eigh picks by roundoff),
+   and the host EigenSubproblem through
+   Optimizer.set_trust_region_subproblem on the 2-D problem (2): the same
+   outer and inner iteration counts and LOBPCG block iterations per
+   eigensolve, fobj within 1e-9 relative.
+
+The kernels line also carries each kernel's launches in phase 26
+(eig_launches).
 Only torch and numpy are used.
 """
 
@@ -596,11 +634,17 @@ def _profile_outer_step(torch, solver, state, names=MMA_RANGES):
     return _profile_call(torch, lambda: solver._step(state), names)
 
 
+# device operations in a kineto trace (the gpu_user_annotation events are
+# the ranges, not operations)
+DEVICE_OP_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def _profile_call(torch, fn, names=()):
     """``fn()`` under torch.profiler: the window, device ops, busy seconds
     of the window, and device ops / device ms / host ms inside each range
-    of ``names``."""
-    from torch.autograd import DeviceType
+    of ``names``.  The trace is read from its chrome-trace export: parsing
+    it into the profiler's Python events took minutes for an outer
+    iteration of ~90,000 device ops."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -609,20 +653,28 @@ def _profile_call(torch, fn, names=()):
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = [e for e in on_dev if e.name.startswith("paropt.")]
-    ops = [e for e in on_dev if not e.name.startswith("paropt.")]
-    busy = sum(e.time_range.elapsed_us() for e in ops) * 1e-6
+    t1 = time.perf_counter()
+    BUILD.mkdir(exist_ok=True)
+    path = BUILD / "chip_smoke_profile.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    path.unlink()
+    ops = [e for e in events if e.get("cat") in DEVICE_OP_CATS]
+    busy = sum(e["dur"] for e in ops) * 1e-6
     split = {}
     for name in names:
-        inside = [k for r in ranges if r.name == name for k in ops
-                  if r.time_range.start <= k.time_range.start
-                  < r.time_range.end]
-        host = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CPU and e.name == name)
-        split[name] = (len(inside),
-                       sum(k.time_range.elapsed_us() for k in inside) * 1e-3,
+        spans = [(r["ts"], r["ts"] + r["dur"]) for r in events
+                 if r.get("cat") == "gpu_user_annotation"
+                 and r.get("name") == name]
+        inside = [k for k in ops if any(a <= k["ts"] < b for a, b in spans)]
+        host = sum(e["dur"] for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") == name)
+        split[name] = (len(inside), sum(k["dur"] for k in inside) * 1e-3,
                        host * 1e-3)
+    log(f"[profile] {len(events)} trace events read in "
+        f"{time.perf_counter() - t1:.2f} s")
     return window, len(ops), busy, split
 
 
@@ -743,10 +795,10 @@ def phase_mma_crosscheck(torch):
     """FEM and DMO in float64, card against host."""
     from paropt_torch.models.fem_topology import DMOFEMTopology, FEMTopology
     cases = (
-        ("fem 24x12 mgcg", 10, lambda dev: FEMTopology(
+        ("fem 24x12 mgcg", 6, lambda dev: FEMTopology(
             24, 12, cg_iters=25, solver="mgcg", dtype=torch.float64,
             device=dev)),
-        ("dmo 12x6", 8, lambda dev: DMOFEMTopology(
+        ("dmo 12x6", 5, lambda dev: DMOFEMTopology(
             12, 6, cg_iters=120, dtype=torch.float64, device=dev)),
     )
     for name, iters, make in cases:
@@ -1746,10 +1798,14 @@ def phase_batched_ip(torch):
     return out
 
 
+SEQ_SOLVES = 8      # phase 22's sequential solves, cut from 32
+
+
 def phase_batched_small(torch):
     """scripts/bench_batched.py's defaults (n = 4096, k = 32, tol 1e-4,
-    float32 on the card): the batched solve against 32 sequential single
-    solves, wall time both ways.  The ratio is recorded, not claimed."""
+    float32 on the card): the batched solve against sequential single
+    solves of its first SEQ_SOLVES instances, wall time per solve both
+    ways.  The ratio is recorded, not claimed."""
     n, k, tol = 4096, 32, 1e-4
     tag = f"[batched ip k={k} n={n} float32]"
     fused, data, x0, qn0 = _build_solver(torch, n, torch.float32, "cuda",
@@ -1764,18 +1820,20 @@ def phase_batched_small(torch):
     torch.cuda.synchronize()
     tb = time.perf_counter() - t0
     t0 = time.perf_counter()
-    seq = [fused.solve(x0s[i], data, (), qn0) for i in range(k)]
+    seq = [fused.solve(x0s[i], data, (), qn0) for i in range(SEQ_SOLVES)]
     torch.cuda.synchronize()
     ts = time.perf_counter() - t0
     conv_s = [bool(s.converged) for s in seq]
     iters_s = [int(s.k) for s in seq]
-    log(f"{tag} batched {tb:.3f} s (converged "
-        f"{int(st.converged.sum())}/{k}, iterations max "
-        f"{int(st.k.max())}) vs {k} sequential {ts:.3f} s (converged "
-        f"{sum(conv_s)}/{k}, iterations max {max(iters_s)}, total "
-        f"{sum(iters_s)}): sequential / batched = {ts / tb:.2f}")
+    m = SEQ_SOLVES
+    log(f"{tag} batched {tb:.3f} s = {tb / k * 1e3:.1f} ms per instance "
+        f"(converged {int(st.converged.sum())}/{k}, iterations max "
+        f"{int(st.k.max())}) vs {m} sequential {ts:.3f} s = "
+        f"{ts / m * 1e3:.1f} ms per solve (converged {sum(conv_s)}/{m}, "
+        f"iterations max {max(iters_s)}, total {sum(iters_s)}): per solve, "
+        f"sequential / batched = {(ts / m) / (tb / k):.2f}")
     check(torch.isfinite(st.fobj).all().item(), "non-finite batched fobj")
-    check(st.converged.tolist() == conv_s,
+    check(st.converged.tolist()[:m] == conv_s,
           "batched and sequential solves disagree on convergence")
     for i, s in enumerate(seq):
         check(abs(float(st.fobj[i]) - float(s.fobj))
@@ -1857,12 +1915,12 @@ def _f32_floor(tag, res, r1, moved, i):
 def phase_batched_mma(torch):
     """Batched FusedMMA at full width: k = 4 starts on FEMTopology(768,
     384, mgcg), clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32,
-    10 outer iterations (a depth cut): infeasibility < 1e-6 for every
+    6 outer iterations (a depth cut): infeasibility < 1e-6 for every
     instance, no kernel launched, instance 1 printed beside its single
     solve and float32's roundoff floor.  float64, 3 outer iterations:
     instance 1 equals its single solve (niter, fobj within 1e-5)."""
     from paropt_torch.models.fem_topology import FEMTopology
-    for dtype, iters in ((torch.float32, 10), (torch.float64, 3)):
+    for dtype, iters in ((torch.float32, 6), (torch.float64, 3)):
         name = str(dtype).split(".")[1]
         tag = f"[batched mma k={KB} 768x384 {name}]"
         prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
@@ -1937,7 +1995,7 @@ def phase_batched_tr(torch):
 
 def phase_batched_crosscheck(torch):
     """The three batched solves at the CPU tests' sizes in float64 (depths
-    cut: the IP to 60 steps, the MMA and TR to 6 and 4 outer iterations),
+    cut: the IP to 60 steps, the MMA and TR to 4 and 3 outer iterations),
     on the card and on the host: equal counts, fobj within 1e-12
     relative, per instance."""
     from paropt_torch import ip_fused as tip
@@ -1967,7 +2025,7 @@ def phase_batched_crosscheck(torch):
     def mma(dev):
         prob = fem(dev)
         x0, _, _ = prob.get_vars_and_bounds()
-        res, st = FusedMMA(prob, {"mma_max_iterations": 6,
+        res, st = FusedMMA(prob, {"mma_max_iterations": 4,
                                   "mma_output_file": None}).solve_batched(
             _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95)))
         return ([*res["niter"].tolist(), *st.subiters.tolist()],
@@ -1978,7 +2036,7 @@ def phase_batched_crosscheck(torch):
         x0, _, _ = prob.get_vars_and_bounds()
         res, st = FusedTR(prob, {
             "tr_output_file": None, "output_file": None,
-            "tr_max_iterations": 4, "abs_res_tol": 1e-7,
+            "tr_max_iterations": 3, "abs_res_tol": 1e-7,
             "tr_infeas_tol": 1e-5, "tr_l1_tol": 0.0,
             "tr_linfty_tol": 1e-5}).solve_batched(
             _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95), seed=1))
@@ -1999,6 +2057,194 @@ def phase_batched_crosscheck(torch):
         for a, b in zip(fc, fh):
             check(abs(a - b) <= 1e-12 * abs(b),
                   f"{name}: objectives differ: cuda {a!r}, cpu {b!r}")
+
+
+# --- the eigenvalue path (phases 26-28) -----------------------------------
+
+EIG3D_MESH = (64, 32, 32)
+EIG3D_ITERS = 3     # phase 26's depth, cut from the flagship's 40
+EIG_RANGES = ("paropt.eig.lobpcg",) + TR_RANGES
+# bench.py:290-297's eigen-TR options
+EIG_OPTS = {"tr_output_file": None, "output_file": None,
+            "tr_max_iterations": 20, "tr_init_size": 0.05,
+            "tr_max_size": 0.2, "tr_min_size": 1e-6, "abs_res_tol": 1e-8,
+            "tr_l1_tol": 1e-4, "tr_linfty_tol": 1e-4,
+            "tr_adaptive_gamma_update": True, "penalty_gamma": 10.0}
+NO_QD_REASON = ("the frequency problems have no sparse constraints (nwcon "
+                "= 0): the inner solves factor the one dense row and the "
+                "merged compact term, with no blocked_t quasi-definite "
+                "solve for quasi_def_apply or phi_gram")
+
+
+def phase_eig3d_full(torch):
+    """Phase 26: FusedEigenTR on the JAX package's 3-D eigen flagship in
+    float32, EIG3D_ITERS outer iterations, each one call of
+    ``solve(state0=...)`` resuming the last; returns the kernel launches of
+    those iterations."""
+    from paropt_torch.models.fem_frequency import FrequencyTopology3D
+    from paropt_torch.ops import kernels
+    tag = "[eig3d {}x{}x{} N=6 float32]".format(*EIG3D_MESH)
+    t_phase = time.perf_counter()
+    prob = FrequencyTopology3D(*EIG3D_MESH, N=6, cg_iters=30,
+                               solver="mgcg", lobpcg_iters=60,
+                               dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t_phase
+    scale = prob.ks_rho / prob.lam_target ** 2
+    log(f"{tag} {prob.nvars} design variables, {prob.fem.ndof} dofs; built "
+        f"in {build:.2f} s with the lam_target calibration eigensolve of "
+        f"{prob.lobpcg_iters_log[0]} LOBPCG block iterations; ks_rho / "
+        f"lam_target^2 = {scale:.4e} (paropt_tpu's run: 5.37e10)")
+    t1 = time.perf_counter()
+    solver = prob.build_fused_tr({"tr_max_iterations": 1,
+                                  "dtype": "float32", "output_file": None,
+                                  "tr_output_file": None})
+    torch.cuda.synchronize()
+    log(f"{tag} FusedEigenTR built in {time.perf_counter() - t1:.2f} s, "
+        f"its start eigensolve (cold) {prob.lobpcg_iters_log[-1]} block "
+        f"iterations")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    reads0, solves0 = solver.syncs.count, len(prob.lobpcg_iters_log)
+    state, fobjs, finite, rhos = None, [], [], []
+    t0 = time.perf_counter()
+    for _ in range(EIG3D_ITERS):
+        res, state = solver.solve(state0=state)
+        fobjs.append(res["fobj"])
+        rhos.append(state.rho)
+        finite.append(torch.isfinite(res["x"]).all() & torch.isfinite(
+            state.rho) & torch.isfinite(state.fk))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reads = solver.syncs.count - reads0
+    warm = prob.lobpcg_iters_log[solves0:]
+    log(f"{tag} {res['niter']} outer iterations, {res['subiters']} inner IP "
+        f"iterations; fobj {' '.join(f'{f:.6f}' for f in fobjs)} (start "
+        f"1.0), rho {' '.join(f'{float(r):.4g}' for r in rhos)}; infeas "
+        f"{res['infeas']:.3e}, l1 {res['l1']:.4e}, linf "
+        f"{res['linfty']:.4e}, tr_size {res['tr_size']:.4e}")
+    log(f"{tag} wall {wall:.3f} s = {wall / EIG3D_ITERS:.4f} s per outer "
+        f"iteration; LOBPCG block iterations per eigensolve: cold "
+        f"{prob.lobpcg_iters_log[:2]}, warm {warm}; {reads} host reads = "
+        f"{reads / EIG3D_ITERS:.1f} per outer iteration; peak memory "
+        f"{peak:.3f} GiB; kernel launches {launches}")
+    window, nops, busy, split = _profile_call(
+        torch, lambda: solver._step(state), EIG_RANGES)
+    _log_busy(tag, "one further outer iteration", window, nops, busy)
+    for name, (cnt, dev_ms, host_ms) in split.items():
+        log(f"{tag}   {name}: {cnt} device ops, device {dev_ms:.3f} ms, "
+            f"host {host_ms:.3f} ms")
+    for i, ok in enumerate(finite):
+        check(bool(ok), f"outer iteration {i + 1}: a non-finite iterate, "
+              f"fobj or rho (the float32 _minv_floor failure mode)")
+    check(res["niter"] == EIG3D_ITERS, f"{res['niter']} outer iterations, "
+          f"not {EIG3D_ITERS}")
+    check(fobjs[-1] < 1.0, f"fobj {fobjs[-1]:.6f} not below its start 1.0")
+    check(launches["qn_roll_update"] == EIG3D_ITERS,
+          f"qn_roll_update launched {launches['qn_roll_update']} times in "
+          f"{EIG3D_ITERS} outer iterations")
+    check(launches["quasi_def_apply"] == launches["phi_gram"] == 0,
+          f"a quasi-definite kernel ran on the eigen path: {launches}")
+    log(f"{tag} qn_roll_update once per outer iteration (the outer QN "
+        f"update); quasi_def_apply and phi_gram 0 times: {NO_QD_REASON}")
+    log(f"{tag} phase 26 took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def phase_eig_bench(torch):
+    """Phase 27: bench.py's eigen-TR configuration as a correctness
+    check."""
+    from paropt_torch.models.fem_frequency import FrequencyTopology
+    from paropt_torch.ops import kernels
+    t_phase = time.perf_counter()
+    prob = FrequencyTopology(24, 12, N=4, cg_iters=25, solver="mgcg",
+                             lobpcg_iters=50, dtype=torch.float32,
+                             device="cuda")
+    solver = prob.build_fused_tr(dict(EIG_OPTS, dtype="float32"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, _ = solver.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"[eigtr 24x12 float32] outer iterations {res['niter']}, inner "
+        f"{res['subiters']}, fobj {res['fobj']:.6f}, infeas "
+        f"{res['infeas']:.3e} (paropt_tpu's 20-iteration window on its "
+        f"TPU: 6.9e-4), l1 {res['l1']:.4e}, linf {res['linfty']:.4e}; "
+        f"{wall:.2f} s = {wall / max(res['niter'], 1):.4f} s per outer "
+        f"iteration, {res['niter'] / wall:.3f} outer iterations/s; LOBPCG "
+        f"block iterations {prob.lobpcg_iters_log}; launches {launches}")
+    check(0.25 < res["fobj"] < 0.35,
+          f"fobj {res['fobj']:.4f} outside bench.py's band (0.25, 0.35)")
+    check(res["infeas"] < 2e-3, f"infeas {res['infeas']:.3e} >= 2e-3")
+    check(launches["qn_roll_update"] == res["niter"]
+          and launches["quasi_def_apply"] == launches["phi_gram"] == 0,
+          f"unexpected kernel launches on the eigen-TR path: {launches}")
+    log(f"[eigtr 24x12 float32] phase 27 took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_eig_crosscheck(torch):
+    """Phase 28: the eigen path in float64, card against host: FusedEigenTR
+    on FrequencyTopology(8, 4) and FrequencyTopology3D(4, 3, 2), and the
+    host EigenSubproblem through `Optimizer.set_trust_region_subproblem`
+    on the 2-D problem."""
+    from paropt_torch import Optimizer
+    from paropt_torch.models.fem_frequency import (FrequencyTopology,
+                                                   FrequencyTopology3D)
+    t_phase = time.perf_counter()
+    opts = dict(EIG_OPTS, dtype="float64")
+
+    def freq2d(dev):
+        return FrequencyTopology(8, 4, N=3, cg_iters=25, solver="mgcg",
+                                 lobpcg_iters=50, dtype=torch.float64,
+                                 device=dev)
+
+    def freq3d(dev):
+        # ny != nz: a y <-> z symmetric box has a double lowest eigenvalue,
+        # whose basis each eigh picks by roundoff
+        return FrequencyTopology3D(4, 3, 2, N=3, cg_iters=120,
+                                   solver="jacobi", dtype=torch.float64,
+                                   device=dev)
+
+    def fused(make, iters):
+        def run(dev):
+            prob = make(dev)
+            res, _ = prob.build_fused_tr(
+                dict(opts, tr_max_iterations=iters)).solve()
+            return res["fobj"], (res["niter"], res["subiters"],
+                                 prob.lobpcg_iters_log)
+        return run
+
+    def host(dev):
+        prob = freq2d(dev)
+        sub, _ = prob.build_tr_subproblem(msub=10)
+        opt = Optimizer(prob, dict(opts, algorithm="tr",
+                                   tr_max_iterations=2))
+        opt.set_trust_region_subproblem(sub)
+        res = opt.optimize()
+        return res["fobj"], (res["niter"], opt._inner.inner_iters,
+                             prob.lobpcg_iters_log)
+
+    cases = (("FusedEigenTR 2-D 8x4", fused(freq2d, 4)),
+             ("FusedEigenTR 3-D 4x3x2", fused(freq3d, 4)),
+             ("host EigenSubproblem 2-D 8x4", host))
+    for name, run in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = run(dev)
+            log(f"[eig crosscheck] {name} {dev}: fobj {out[dev][0]:.15e}, "
+                f"(outer, inner, LOBPCG block iterations per eigensolve) "
+                f"{out[dev][1]} ({time.perf_counter() - t0:.2f} s)")
+        (fc, ic), (fh, ih) = out["cuda"], out["cpu"]
+        check(ic == ih, f"{name}: counts differ: cuda {ic}, cpu {ih}")
+        check(abs(fc - fh) <= 1e-9 * abs(fh),
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+    log(f"[eig crosscheck] phase 28 took "
+        f"{time.perf_counter() - t_phase:.2f} s")
 
 
 def main():
@@ -2033,6 +2279,9 @@ def main():
     phase_batched_mma(torch)
     batched_tr_launches = phase_batched_tr(torch)
     phase_batched_crosscheck(torch)
+    eig_launches = phase_eig3d_full(torch)
+    phase_eig_bench(torch)
+    phase_eig_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -2044,6 +2293,7 @@ def main():
                      "nk_launches": nk_launches[name],
                      "batched_launches": batched_launches[name],
                      "batched_tr_launches": batched_tr_launches[name],
+                     "eig_launches": eig_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -6,8 +6,10 @@ counterpart:
 - ``dtypes``, ``ops.veclib``: dtype resolution and vector reductions;
 - ``problem``, ``models``: the Problem protocol (autodiff through
   ``torch.func``), the synthetic topology workload, the 2-D SIMP
-  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology)
-  and the small analytic problems (``models.analytic``);
+  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology),
+  the 3-D voxel ones (``models.fem_topology3d``), the frequency-constrained
+  2-D and 3-D models (``models.fem_frequency``) and the small analytic
+  problems (``models.analytic``);
 - ``ops.qn``, ``ops.kkt``: the compact quasi-Newton state and the KKT
   factor/solve;
 - ``ip``: the host-loop interior-point method (InteriorPoint);
@@ -18,6 +20,9 @@ counterpart:
 - ``tr``: the host-loop trust region (TrustRegion, with SL1QP and the
   filter method) and the fused SL1QP trust region (FusedTR), with their
   QP model;
+- ``eig``, ``eig_fused``: the compact eigenvalue-constraint path, host
+  (EigenSubproblem through TrustRegion) and fused (FusedEigenTR);
+  ``ops.lobpcg``: the eigensolver they run, a copy of JAX's LOBPCG;
 - ``optimizer``: the ``Optimizer`` facade (host loops by default, the fused
   loops with ``use_fused_loop``); ``utils.options``: the typed option
   registry; ``utils.logging``: the reference's fixed-width logs and their

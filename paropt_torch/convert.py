@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .dtypes import resolve_device
+from .eig_fused import EigModel, FusedEigTRState
 from .ip_fused import FusedState
 from .mma import FusedMMAState
 from .ops.kkt import IPVars, ProblemData
@@ -30,11 +31,12 @@ from .ops.qn import QNState
 from .tr import FusedTRState
 
 __all__ = ["to_tensor", "problem_data", "ip_vars", "qn_state", "fused_state",
-           "fused_mma_state", "fused_tr_state", "load_interior_point",
+           "fused_mma_state", "fused_tr_state", "fused_eig_tr_state",
+           "load_interior_point",
            "load_trust_region", "load_mma"]
 
 _NESTED = {(FusedState, "vars"): IPVars, (FusedState, "qn"): QNState,
-           (FusedTRState, "qn"): QNState}
+           (FusedTRState, "qn"): QNState, (FusedEigTRState, "qn"): QNState}
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -94,6 +96,15 @@ def fused_mma_state(fields: dict, device=None) -> FusedMMAState:
 def fused_tr_state(fields: dict, device=None) -> FusedTRState:
     """The port's TR outer-loop state from JAX's `FusedTRState`."""
     return _from_fields(FusedTRState, fields, device)
+
+
+def fused_eig_tr_state(fields: dict, device=None) -> FusedEigTRState:
+    """The port's eigen-TR outer-loop state from JAX's `FusedEigTRState`;
+    its ``eig`` entry is a dict of the `EigModel` fields M, Minv and h."""
+    eig = EigModel(**{k: to_tensor(a, device)
+                      for k, a in fields["eig"].items()})
+    state = _from_fields(FusedEigTRState, dict(fields, eig=None), device)
+    return dataclasses.replace(state, eig=eig)
 
 
 def _qn_or_none(fields, device):

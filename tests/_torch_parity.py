@@ -27,12 +27,15 @@ def np_of(x):
 def fields_of(obj):
     """A JAX dataclass state as the dict `paropt_torch.convert` takes:
     numpy arrays for the leaves, plain values for the static fields, nested
-    dicts for nested states."""
+    dicts for nested states and NamedTuples."""
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if dataclasses.is_dataclass(v):
             out[f.name] = fields_of(v)
+        elif isinstance(v, tuple) and hasattr(v, "_fields"):
+            # a NamedTuple leaf group (e.g. FusedEigTRState.eig)
+            out[f.name] = {k: np.asarray(a) for k, a in v._asdict().items()}
         elif f.metadata.get("static") or v is None:
             out[f.name] = v
         else:
@@ -79,6 +82,9 @@ def assert_fields_close(got, want, rtol, atol=0.0, names=None):
         a = getattr(got, f.name)
         if dataclasses.is_dataclass(b):
             assert_fields_close(a, b, rtol, atol)
+        elif isinstance(b, tuple) and hasattr(b, "_fields"):
+            for name, ai, bi in zip(b._fields, a, b):
+                assert_close(ai, bi, rtol, atol, name=f"{f.name}.{name}")
         else:
             assert_close(a, b, rtol, atol, name=f.name)
 

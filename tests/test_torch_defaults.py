@@ -19,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_torch import Optimizer, convert, dtypes, ip, ip_fused
-from paropt_torch.models import (analytic, fem_topology, fem_topology3d,
-                                 topology)
+from paropt_torch import Optimizer, convert, dtypes, eig, ip, ip_fused
+from paropt_torch.eig_fused import FusedEigenTR
+from paropt_torch.models import (analytic, fem_frequency, fem_topology,
+                                 fem_topology3d, topology)
 from paropt_torch.ops import kkt, qn
+from paropt_torch.tr import TrustRegion
 
 
 def _ip_fields():
@@ -41,6 +43,14 @@ CONSTRUCTORS = {
                       lambda: fem_topology3d.FEMTopology3D(4, 2, 2)),
     "DMOFEMTopology3D": (fem_topology3d,
                          lambda: fem_topology3d.DMOFEMTopology3D(2, 2, 2)),
+    "FrequencyTopology": (fem_frequency,
+                          lambda: fem_frequency.FrequencyTopology(
+                              8, 4, N=3, cg_iters=4, lobpcg_iters=4)),
+    "FrequencyTopology3D": (fem_frequency,
+                            lambda: fem_frequency.FrequencyTopology3D(
+                                4, 2, 2, N=3, cg_iters=4, solver="jacobi",
+                                lobpcg_iters=4)),
+    "CompactEigenApprox": (eig, lambda: eig.CompactEigenApprox(8, 2)),
     "Rosenbrock": (analytic, analytic.Rosenbrock),
     "SparseRosenbrock": (analytic, analytic.SparseRosenbrock),
     "ScalableRosenbrock": (analytic, analytic.ScalableRosenbrock),
@@ -210,3 +220,67 @@ def test_batched_route_without_device_aims_at_the_card(route):
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             _batched_route(route, None)
+
+
+# tiny eigen-path problems: a few CG and LOBPCG iterations suffice here
+FREQ = {
+    "FrequencyTopology": lambda device: fem_frequency.FrequencyTopology(
+        8, 4, N=3, cg_iters=4, solver="mgcg", lobpcg_iters=4,
+        dtype=torch.float64, device=device),
+    "FrequencyTopology3D": lambda device: fem_frequency.FrequencyTopology3D(
+        4, 2, 2, N=3, cg_iters=4, solver="jacobi", lobpcg_iters=4,
+        dtype=torch.float64, device=device),
+}
+EIG_OPTS = {"output_file": None, "tr_output_file": None,
+            "tr_max_iterations": 1, "dtype": "float64"}
+
+
+@pytest.mark.parametrize("make", ["FrequencyTopology", "FrequencyTopology3D",
+                                  "FusedEigenTR"])
+def test_eigen_constructors_stay_on_the_device_and_turn_tf32_off(make):
+    """The frequency models and FusedEigenTR, built on the CPU under a meta
+    default device, make every tensor on the CPU and turn TF32 off."""
+    prob = FREQ["FrequencyTopology"]("cpu") if make == "FusedEigenTR" \
+        else None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    if prob is None:
+        obj = _on_meta_default(lambda: FREQ[make]("cpu"))
+        x = obj.get_vars_and_bounds()[0]
+    else:
+        obj = _on_meta_default(lambda: FusedEigenTR(prob, dict(EIG_OPTS)))
+        x = obj._state0.V
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    assert x.device.type == "cpu" and torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("route", ["fused", "host"])
+def test_eigen_route_makes_no_tensor_off_the_problem_device(route):
+    """One outer iteration of FusedEigenTR and of the host EigenSubproblem
+    route on the CPU under a meta default device."""
+    prob = FREQ["FrequencyTopology"]("cpu")
+    if route == "fused":
+        res, state = _on_meta_default(
+            lambda: prob.build_fused_tr(dict(EIG_OPTS)).solve())
+        assert state.V.device.type == "cpu"
+    else:
+        sub, _ = prob.build_tr_subproblem(msub=4)
+        res = _on_meta_default(
+            lambda: TrustRegion(prob, dict(EIG_OPTS),
+                                subproblem=sub).optimize())
+    assert res["niter"] == 1 and res["x"].device.type == "cpu"
+
+
+def test_eigen_route_without_device_aims_at_the_card():
+    """A frequency model given no device runs its fused eigen TR on the
+    card; without one, PyTorch's own error, and no CPU fallback."""
+    def run():
+        prob = FREQ["FrequencyTopology"](None)
+        return prob.build_fused_tr(dict(EIG_OPTS)).solve()[0]["x"]
+
+    if torch.cuda.is_available():
+        assert run().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            run()

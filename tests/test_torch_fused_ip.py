@@ -287,6 +287,8 @@ def test_import_loads_no_jax():
             "paropt_torch.optimizer, paropt_torch.tr, "
             "paropt_torch.models.fem_topology, paropt_torch.models.analytic, "
             "paropt_torch.models.fem_topology3d, "
+            "paropt_torch.models.fem_frequency, paropt_torch.eig, "
+            "paropt_torch.eig_fused, paropt_torch.ops.lobpcg, "
             "paropt_torch.utils.options, paropt_torch.ip, "
             "paropt_torch.problem, paropt_torch.utils.logging, "
             "paropt_torch.utils.chunked; "

@@ -189,6 +189,38 @@ def test_cuda_host_routes_keep_state_on_the_card(cuda, algorithm):
         assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
+def test_cuda_fused_eigen_tr_matches_host(cuda):
+    """FusedEigenTR on FrequencyTopology(8, 4, N=3, mgcg) in float64 with
+    bench.py's eigen-TR options, 4 outer iterations: the card run takes the
+    host run's outer and inner iterations and LOBPCG block counts, fobj to
+    1e-9.  Its only kernel is the outer QN update's qn_roll_update, once
+    per outer iteration: the frequency problem has no sparse constraints
+    (nwcon = 0), so no inner solve reaches the quasi-definite kernels."""
+    from paropt_torch.models.fem_frequency import FrequencyTopology
+    opts = {"tr_output_file": None, "output_file": None,
+            "tr_max_iterations": 4, "tr_init_size": 0.05,
+            "tr_max_size": 0.2, "tr_min_size": 1e-6, "abs_res_tol": 1e-8,
+            "tr_l1_tol": 1e-4, "tr_linfty_tol": 1e-4,
+            "tr_adaptive_gamma_update": True, "penalty_gamma": 10.0,
+            "dtype": "float64"}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = FrequencyTopology(8, 4, N=3, cg_iters=25, solver="mgcg",
+                                 lobpcg_iters=50, dtype=torch.float64,
+                                 device=dev)
+        kernels.reset_launches()
+        res, _ = prob.build_fused_tr(dict(opts)).solve()
+        out[dev.type] = (res, list(prob.lobpcg_iters_log),
+                         dict(kernels.LAUNCHES))
+    (rc, bc, lc), (rh, bh, lh) = out["cuda"], out["cpu"]
+    assert lc == {"qn_roll_update": rc["niter"], "quasi_def_apply": 0,
+                  "phi_gram": 0}, lc
+    assert not any(lh.values())
+    assert (rc["niter"], rc["subiters"]) == (rh["niter"], rh["subiters"])
+    assert bc == bh
+    assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])
+
+
 NK_OPTS = {"use_hvec_product": True, "gmres_subspace_size": 25,
            "eisenstat_walker_gamma": 0.05, "nk_switch_tol": 1e-3}
 

@@ -14,7 +14,7 @@ same problems and the same numpy inputs, in float64.
   the QN state's included, to 1e-12 relative.
 - The non-finite fail-stop, the registry -> inner-options mapping, which
   kernel route each inner solve takes, TF32 turned off, the write-output
-  cadence and the unported entry points.
+  cadence, the unported entry points and the QP model's eigen row.
 """
 
 import dataclasses
@@ -382,15 +382,40 @@ def test_write_output_cadence_and_unported_paths():
     # solve_batched is ported; its chunked form is not
     with pytest.raises(NotImplementedError, match="chunked"):
         fus.solve_batched(torch.zeros((2, 64), dtype=F64), chunk=4)
+    # the eigen row of the QP model (ported with the eigenvalue path): row
+    # eig_index gets + 1/2 (h p)' M (h p) and its gradient + h' M (h p),
+    # held against paropt_tpu's; without eig_index the fields are ignored
     st = fus._state0
-    zero = torch.zeros((), dtype=F64)
-    params = ttr.QPParams(fk=st.fk, gk=st.gk, ck=st.ck, Ak=st.Ak,
-                          cwk=st.cwk, Aw_cols=None, Aw_vals=None, b0=zero,
-                          Z=None, M=None, obj_scale=zero + 1.0,
-                          eig_M=torch.eye(1, dtype=F64),
-                          eig_h=torch.zeros((1, 64), dtype=F64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ttr.make_qp_model(False, "quadratic").eval_obj_con(params, st.xk)
+    rng = np.random.default_rng(4)
+    eig_M = -np.eye(2) + 0.1 * rng.standard_normal((2, 2))
+    eig_h = rng.standard_normal((2, 64))
+    p = rng.uniform(-0.1, 0.1, 64)
+    fields = dict(fk=st.fk, gk=st.gk, ck=st.ck, Ak=st.Ak, cwk=st.cwk,
+                  Aw_cols=None, Aw_vals=None, b0=st.fk * 0 + 0.5, Z=None,
+                  M=None, obj_scale=st.fk * 0 + 1.0)
+    tparams = ttr.QPParams(**fields, eig_M=torch.tensor(eig_M),
+                           eig_h=torch.tensor(eig_h))
+    jparams = jtr.QPParams(
+        **{k: (None if v is None else jnp.asarray(v.numpy()))
+           for k, v in fields.items()},
+        eig_M=jnp.asarray(eig_M), eig_h=jnp.asarray(eig_h))
+    for mode in ("quadratic", "linear"):
+        tm = ttr.make_qp_model(False, mode, eig_index=0)
+        jm = jtr.make_qp_model(False, mode, eig_index=0)
+        for got, want in zip(tm.eval_obj_con(tparams, torch.tensor(p)) +
+                             tm.eval_grad(tparams, torch.tensor(p)),
+                             jm.eval_obj_con(jparams, jnp.asarray(p)) +
+                             jm.eval_grad(jparams, jnp.asarray(p))):
+            assert_close(got, want, rtol=1e-12, atol=1e-14)
+        plain = ttr.make_qp_model(False, mode)
+        bare = tparams._replace(eig_M=None, eig_h=None)
+        for got, want in zip(plain.eval_obj_con(tparams, torch.tensor(p)),
+                             plain.eval_obj_con(bare, torch.tensor(p))):
+            assert torch.equal(got, want)
+        _, A_eig = tm.eval_grad(tparams, torch.tensor(p))
+        _, A_plain = plain.eval_grad(tparams, torch.tensor(p))
+        assert torch.equal(A_plain, tparams.Ak)
+        assert not torch.equal(A_eig, A_plain)
 
 
 def test_solve_resumes_and_result_keys():
