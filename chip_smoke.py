@@ -10,7 +10,8 @@ Phases (any failure raises and exits nonzero without the final line):
 2. build: compiles the CUDA kernels from paropt_torch/csrc with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged sizes (phi_gram as the factor setup
-   calls it: the stack as two row blocks, bw = 0), and two runs of each
+   calls it: the stack as two row blocks, bw = 0; qn_roll_update also at
+   the eigen TR's n = 65,536 and 288 of phases 26 and 27), and two runs of each
    quasi-definite kernel bitwise equal.  At the main path's shapes in
    float32: the device time of kernel and plain version (CUDA events,
    median of 20 runs after warm-up, L2 flushed), the bound (the bytes the
@@ -52,8 +53,8 @@ Phases (any failure raises and exits nonzero without the final line):
    solver="mgcg"), float32, 60 outer iterations; fobj must fall in
    bench.py's band (0.10, 0.18) with infeasibility < 1e-8;
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
-   cg_iters 25) for 6 outer iterations and on DMOFEMTopology(12, 6,
-   cg_iters 120) for 5 (cut from 20 and 15), once with CUDA tensors and
+   cg_iters 25) for 10 outer iterations and on DMOFEMTopology(12, 6,
+   cg_iters 120) for 8 (cut from 20 and 15), once with CUDA tensors and
    once on the CPU: the
    same outer and inner iteration counts, fobj within 1e-9 relative;
 9. TR at full width: FusedTR (bench.py's TR options: 20 outer iterations,
@@ -163,12 +164,11 @@ call with its instance axis):
    ways, peak memory, launches, and one float32 batched step under
    torch.profiler;
 22. scripts/bench_batched.py's defaults: n = 4096, k = 32, tol 1e-4,
-   float32: the batched solve against sequential single solves of its
-   first 8 instances (cut from all 32), wall time per solve both ways and
-   their ratio (recorded, not claimed); the same convergence flags and
-   fobj within 1e-5;
+   float32: the batched solve against 32 sequential single solves, wall
+   time both ways and their ratio (recorded, not claimed); the same
+   convergence flags and fobj within 1e-5;
 23. batched MMA at full width: FEMTopology(768, 384, mgcg), k = 4 starts
-   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 6 outer
+   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 10 outer
    iterations (a depth cut): infeasibility < 1e-6 for every instance, no
    kernel launched, instance 1 printed beside its single solve and the
    float32 floor.  float64, 3 outer iterations: instance 1 equal to its
@@ -182,7 +182,7 @@ call with its instance axis):
    iterations, instance 2 equal to its single solve (fobj within 1e-5);
 25. card against host in float64: the three batched solves at the CPU
    tests' sizes (SyntheticTopology(256); FEM 8x4), depths cut (the IP to
-   60 steps, the MMA and TR to 4 and 3 outer iterations), on the card and
+   60 steps, the MMA and TR to 6 and 4 outer iterations), on the card and
    on the CPU: equal counts, fobj within 1e-12 relative per instance.
 
 The kernels line also carries each kernel's launches in phase 21
@@ -195,19 +195,24 @@ FusedEigenTR and the host EigenSubproblem); each prints its wall seconds:
 26. the 3-D eigen flagship at full width: FrequencyTopology3D(64, 32, 32,
    N=6, cg_iters=30, solver="mgcg", lobpcg_iters=60) in float32, 65,536
    design variables and 212,355 dofs, through
-   build_fused_tr({"tr_max_iterations": 1}) and 6 calls of
-   solve(state0=...), each resuming the last (3 outer iterations, cut from
-   the flagship's 40).  It prints the construction seconds and the
-   lam_target calibration's LOBPCG block iterations, ks_rho/lam_target^2
-   (paropt_tpu measured 5.37e10), seconds and host reads per outer
-   iteration, LOBPCG block iterations per eigensolve (cold and warm), peak
-   memory, and one further outer iteration under torch.profiler split by
-   the paropt.eig.lobpcg, paropt.tr.steer, paropt.tr.qp, paropt.tr.eval
-   and paropt.tr.qn_update ranges.  Checks: every iterate, fobj and rho
-   finite; fobj below its start of 1.0; qn_roll_update launched once per
-   outer iteration and quasi_def_apply and phi_gram never (the frequency
-   problems have no sparse constraints, nwcon = 0, so no inner solve has a
-   quasi-definite block to solve; the reason is printed);
+   build_fused_tr({"tr_max_iterations": 1}) and 3 calls of
+   solve(state0=...), each resuming the last and running one more outer
+   iteration (3 outer iterations, cut from the flagship's 40).  It prints
+   the construction seconds and the lam_target calibration's LOBPCG block
+   iterations, ks_rho/lam_target^2 (paropt_tpu measured 5.37e10), seconds
+   and host reads per outer iteration, LOBPCG block iterations per
+   eigensolve (cold and warm), peak memory, and one further outer
+   iteration under torch.profiler split by the paropt.eig.lobpcg,
+   paropt.tr.steer, paropt.tr.qp, paropt.tr.eval and paropt.tr.qn_update
+   ranges.  Checks: every iterate, fobj and rho finite; fobj below its
+   start of 1.0; qn_roll_update launched once per outer iteration and
+   quasi_def_apply and phi_gram never (the frequency problems have no
+   sparse constraints, nwcon = 0, so no inner solve has a quasi-definite
+   block to solve; the reason is printed).  Then the first outer
+   iteration is priced again in float64 at the same two points (x0 and
+   the first trial), each eigensolve started from the float32 basis there:
+   eigenvalues, KS values and rho printed both ways, and float64 must
+   accept or reject the trial as float32 did;
 27. bench.py's eigen-TR configuration: FrequencyTopology(24, 12, N=4,
    cg_iters=25, solver="mgcg", lobpcg_iters=50) with bench.py:290-297's
    options, float32, 20 outer iterations; fobj must fall in bench.py's
@@ -432,8 +437,11 @@ def phase_kernels(torch):
             f"clean flush {clean_ms:.4f} ms ({100 * bms / clean_ms:.1f}%)")
         return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
 
-    # 1. qn_roll_update: [2m, n] buffer in f32 / f64 / bf16, upd both ways
-    for n in (N_MAIN, 1000):
+    # 1. qn_roll_update: [2m, n] buffer in f32 / f64 / bf16, upd both ways,
+    #    at the n of the main path, of the eigen TR paths (phases 26 and
+    #    27) and a ragged n
+    for n in (N_MAIN, math.prod(EIG3D_MESH), math.prod(EIG_BENCH_MESH),
+              1000):
         for sdt, cdt in ((torch.float32, torch.float32),
                          (torch.float64, torch.float64),
                          (torch.bfloat16, torch.float32)):
@@ -795,10 +803,10 @@ def phase_mma_crosscheck(torch):
     """FEM and DMO in float64, card against host."""
     from paropt_torch.models.fem_topology import DMOFEMTopology, FEMTopology
     cases = (
-        ("fem 24x12 mgcg", 6, lambda dev: FEMTopology(
+        ("fem 24x12 mgcg", 10, lambda dev: FEMTopology(
             24, 12, cg_iters=25, solver="mgcg", dtype=torch.float64,
             device=dev)),
-        ("dmo 12x6", 5, lambda dev: DMOFEMTopology(
+        ("dmo 12x6", 8, lambda dev: DMOFEMTopology(
             12, 6, cg_iters=120, dtype=torch.float64, device=dev)),
     )
     for name, iters, make in cases:
@@ -1798,14 +1806,10 @@ def phase_batched_ip(torch):
     return out
 
 
-SEQ_SOLVES = 8      # phase 22's sequential solves, cut from 32
-
-
 def phase_batched_small(torch):
     """scripts/bench_batched.py's defaults (n = 4096, k = 32, tol 1e-4,
-    float32 on the card): the batched solve against sequential single
-    solves of its first SEQ_SOLVES instances, wall time per solve both
-    ways.  The ratio is recorded, not claimed."""
+    float32 on the card): the batched solve against 32 sequential single
+    solves, wall time both ways.  The ratio is recorded, not claimed."""
     n, k, tol = 4096, 32, 1e-4
     tag = f"[batched ip k={k} n={n} float32]"
     fused, data, x0, qn0 = _build_solver(torch, n, torch.float32, "cuda",
@@ -1820,20 +1824,18 @@ def phase_batched_small(torch):
     torch.cuda.synchronize()
     tb = time.perf_counter() - t0
     t0 = time.perf_counter()
-    seq = [fused.solve(x0s[i], data, (), qn0) for i in range(SEQ_SOLVES)]
+    seq = [fused.solve(x0s[i], data, (), qn0) for i in range(k)]
     torch.cuda.synchronize()
     ts = time.perf_counter() - t0
     conv_s = [bool(s.converged) for s in seq]
     iters_s = [int(s.k) for s in seq]
-    m = SEQ_SOLVES
-    log(f"{tag} batched {tb:.3f} s = {tb / k * 1e3:.1f} ms per instance "
-        f"(converged {int(st.converged.sum())}/{k}, iterations max "
-        f"{int(st.k.max())}) vs {m} sequential {ts:.3f} s = "
-        f"{ts / m * 1e3:.1f} ms per solve (converged {sum(conv_s)}/{m}, "
-        f"iterations max {max(iters_s)}, total {sum(iters_s)}): per solve, "
-        f"sequential / batched = {(ts / m) / (tb / k):.2f}")
+    log(f"{tag} batched {tb:.3f} s (converged "
+        f"{int(st.converged.sum())}/{k}, iterations max "
+        f"{int(st.k.max())}) vs {k} sequential {ts:.3f} s (converged "
+        f"{sum(conv_s)}/{k}, iterations max {max(iters_s)}, total "
+        f"{sum(iters_s)}): sequential / batched = {ts / tb:.2f}")
     check(torch.isfinite(st.fobj).all().item(), "non-finite batched fobj")
-    check(st.converged.tolist()[:m] == conv_s,
+    check(st.converged.tolist() == conv_s,
           "batched and sequential solves disagree on convergence")
     for i, s in enumerate(seq):
         check(abs(float(st.fobj[i]) - float(s.fobj))
@@ -1915,12 +1917,12 @@ def _f32_floor(tag, res, r1, moved, i):
 def phase_batched_mma(torch):
     """Batched FusedMMA at full width: k = 4 starts on FEMTopology(768,
     384, mgcg), clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32,
-    6 outer iterations (a depth cut): infeasibility < 1e-6 for every
+    10 outer iterations (a depth cut): infeasibility < 1e-6 for every
     instance, no kernel launched, instance 1 printed beside its single
     solve and float32's roundoff floor.  float64, 3 outer iterations:
     instance 1 equals its single solve (niter, fobj within 1e-5)."""
     from paropt_torch.models.fem_topology import FEMTopology
-    for dtype, iters in ((torch.float32, 6), (torch.float64, 3)):
+    for dtype, iters in ((torch.float32, 10), (torch.float64, 3)):
         name = str(dtype).split(".")[1]
         tag = f"[batched mma k={KB} 768x384 {name}]"
         prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
@@ -1995,7 +1997,7 @@ def phase_batched_tr(torch):
 
 def phase_batched_crosscheck(torch):
     """The three batched solves at the CPU tests' sizes in float64 (depths
-    cut: the IP to 60 steps, the MMA and TR to 4 and 3 outer iterations),
+    cut: the IP to 60 steps, the MMA and TR to 6 and 4 outer iterations),
     on the card and on the host: equal counts, fobj within 1e-12
     relative, per instance."""
     from paropt_torch import ip_fused as tip
@@ -2025,7 +2027,7 @@ def phase_batched_crosscheck(torch):
     def mma(dev):
         prob = fem(dev)
         x0, _, _ = prob.get_vars_and_bounds()
-        res, st = FusedMMA(prob, {"mma_max_iterations": 4,
+        res, st = FusedMMA(prob, {"mma_max_iterations": 6,
                                   "mma_output_file": None}).solve_batched(
             _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95)))
         return ([*res["niter"].tolist(), *st.subiters.tolist()],
@@ -2036,7 +2038,7 @@ def phase_batched_crosscheck(torch):
         x0, _, _ = prob.get_vars_and_bounds()
         res, st = FusedTR(prob, {
             "tr_output_file": None, "output_file": None,
-            "tr_max_iterations": 3, "abs_res_tol": 1e-7,
+            "tr_max_iterations": 4, "abs_res_tol": 1e-7,
             "tr_infeas_tol": 1e-5, "tr_l1_tol": 0.0,
             "tr_linfty_tol": 1e-5}).solve_batched(
             _starts(torch, x0, 3, 0.6, 1.4, clip=(0.05, 0.95), seed=1))
@@ -2063,6 +2065,11 @@ def phase_batched_crosscheck(torch):
 
 EIG3D_MESH = (64, 32, 32)
 EIG3D_ITERS = 3     # phase 26's depth, cut from the flagship's 40
+# block iterations of phase 26's float64 reference eigensolves: two
+# depths, which must agree to F64_SETTLED (the reference has settled)
+EIG3D_F64_ITERS = (2, 4)
+F64_SETTLED = 1e-5
+EIG_BENCH_MESH = (24, 12)
 EIG_RANGES = ("paropt.eig.lobpcg",) + TR_RANGES
 # bench.py:290-297's eigen-TR options
 EIG_OPTS = {"tr_output_file": None, "output_file": None,
@@ -2095,6 +2102,15 @@ def phase_eig3d_full(torch):
         f"in {build:.2f} s with the lam_target calibration eigensolve of "
         f"{prob.lobpcg_iters_log[0]} LOBPCG block iterations; ks_rho / "
         f"lam_target^2 = {scale:.4e} (paropt_tpu's run: 5.37e10)")
+    solves = []                     # (x, lam, V) of every eigensolve
+    eig_fn = prob._eig_fn
+
+    def recorded(x, V0=None):
+        lam, W, V = eig_fn(x, V0)
+        solves.append((x, lam, V))
+        return lam, W, V
+
+    prob._eig_fn = recorded
     t1 = time.perf_counter()
     solver = prob.build_fused_tr({"tr_max_iterations": 1,
                                   "dtype": "float32", "output_file": None,
@@ -2149,8 +2165,89 @@ def phase_eig3d_full(torch):
           f"a quasi-definite kernel ran on the eigen path: {launches}")
     log(f"{tag} qn_roll_update once per outer iteration (the outer QN "
         f"update); quasi_def_apply and phi_gram 0 times: {NO_QD_REASON}")
+    _eig3d_f64_reference(torch, prob, solves[:2],
+                         float(solver._state0.gamma[0]), solver._to.eta,
+                         float(rhos[0]))
     log(f"{tag} phase 26 took {time.perf_counter() - t_phase:.2f} s")
     return launches
+
+
+def _ks(lam, lam_t, ks_rho):
+    """The frequency models' KS aggregate of the gaps (lam_i - lam_t) /
+    lam_t, in float64 on the host."""
+    g = [(v - lam_t) / lam_t for v in lam]
+    gmin = min(g)
+    return gmin - math.log(sum(math.exp(-ks_rho * (v - gmin))
+                               for v in g)) / ks_rho
+
+
+def _eig3d_f64_reference(torch, prob, solves, gamma, eta, rho1):
+    """Phase 26's first outer iteration priced again in float64 at the
+    same two points, x0 and the first trial: each eigensolve starts from
+    the float32 run's basis there and runs a fixed number of block
+    iterations, once for each depth of EIG3D_F64_ITERS.  The float64
+    model prices the float32 run's constraint (its lam_target); rho in
+    float64 divides the float64 merit reduction by the first QP's model
+    reduction, recovered from the float32 rho.  Prints the eigenvalues, KS values and rho both ways;
+    checks that the float64 eigenvalues have settled and that float64
+    accepts or rejects the trial as float32 did."""
+    from paropt_torch.models.fem_frequency import FrequencyTopology3D
+    tag = "[eig3d float64 reference]"
+    t0 = time.perf_counter()
+    # its own calibration (one block iteration) is replaced by the
+    # float32 run's target
+    p64 = FrequencyTopology3D(*EIG3D_MESH, N=6, cg_iters=30, solver="mgcg",
+                              lobpcg_iters=1, dtype=torch.float64,
+                              device="cuda")
+    p64.lam_target = prob.lam_target
+    lt, kr = prob.lam_target, prob.ks_rho
+
+    def actual(x_pair, lams):
+        # the merit reduction: mass, plus gamma times the inequality's
+        # violation max(0, -ks)
+        fs = [float(x) for x in x_pair]
+        viol = [max(0.0, -_ks(lam, lt, kr)) for lam in lams]
+        return (fs[0] - fs[1]) + gamma * (viol[0] - viol[1])
+
+    lam32 = [lam.double().tolist() for _, lam, _ in solves]
+    ks32 = [_ks(lam, lt, kr) for lam in lam32]
+    actual32 = actual([prob.objective(x) for x, _, _ in solves], lam32)
+    model = actual32 / rho1
+    f64 = [p64.objective(x.double()) for x, _, _ in solves]
+    log(f"{tag} float32: lam at x0 {lam32[0]}, at the trial {lam32[1]}; KS "
+        f"{ks32[0]:.6e} -> {ks32[1]:.6e}; rho {rho1:.6e} = the actual "
+        f"reduction {actual32:.6e} / the model reduction {model:.6e} "
+        f"(float64 model built in {time.perf_counter() - t0:.2f} s)")
+    last = None
+    for iters in EIG3D_F64_ITERS:
+        p64.lobpcg_iters = iters
+        t1 = time.perf_counter()
+        lam64 = [p64._eig_fn(x.double(), V.double())[0].tolist()
+                 for x, _, V in solves]
+        ks64 = [_ks(lam, lt, kr) for lam in lam64]
+        actual64 = actual(f64, lam64)
+        rho64 = actual64 / model
+        rel = max(abs(a - b) / b for l32, l64 in zip(lam32, lam64)
+                  for a, b in zip(l32, l64))
+        log(f"{tag} {iters} block iterations from the float32 basis "
+            f"({time.perf_counter() - t1:.2f} s for both points): lam at x0 "
+            f"{lam64[0]}, at the trial {lam64[1]}; KS {ks64[0]:.6e} -> "
+            f"{ks64[1]:.6e}; rho {rho64:.6e} (the actual reduction "
+            f"{actual64:.6e}); largest relative eigenvalue "
+            f"gap to float32 {rel:.3e}")
+        check(all(math.isfinite(v) and v > 0 for lam in lam64 for v in lam),
+              f"{tag}: a non-finite or non-positive eigenvalue")
+        if last is not None:
+            moved = max(abs(a - b) / b for l0, l1 in zip(last, lam64)
+                        for a, b in zip(l0, l1))
+            check(moved <= F64_SETTLED, f"{tag}: the float64 eigenvalues "
+                  f"moved by {moved:.3e} > {F64_SETTLED:.0e} between "
+                  f"depths: not settled")
+        last = lam64
+    check((rho64 >= eta) == (rho1 >= eta),
+          f"{tag}: float64 rho {rho64:.4g} and float32 rho {rho1:.4g} "
+          f"decide the trial differently (eta {eta})")
+    log(f"{tag} took {time.perf_counter() - t0:.2f} s")
 
 
 def phase_eig_bench(torch):
@@ -2159,9 +2256,9 @@ def phase_eig_bench(torch):
     from paropt_torch.models.fem_frequency import FrequencyTopology
     from paropt_torch.ops import kernels
     t_phase = time.perf_counter()
-    prob = FrequencyTopology(24, 12, N=4, cg_iters=25, solver="mgcg",
-                             lobpcg_iters=50, dtype=torch.float32,
-                             device="cuda")
+    prob = FrequencyTopology(*EIG_BENCH_MESH, N=4, cg_iters=25,
+                             solver="mgcg", lobpcg_iters=50,
+                             dtype=torch.float32, device="cuda")
     solver = prob.build_fused_tr(dict(EIG_OPTS, dtype="float32"))
     kernels.reset_launches()
     t0 = time.perf_counter()

@@ -25,7 +25,7 @@ import torch
 
 from .dtypes import resolve_device, resolve_dtype
 from .ops import qn as qnmod
-from .tr import QuadraticSubproblem
+from .tr import QuadraticSubproblem, _with_row
 
 __all__ = ["CompactEigenApprox", "EigenQuasiNewton", "EigenSubproblem"]
 
@@ -158,32 +158,26 @@ class EigenSubproblem(QuadraticSubproblem):
     def set_eigen_model_update(self, fn: Callable) -> None:
         self._update_fn = fn
 
-    def _with_eig_row(self, a, row):
-        """``a`` with its row ``index`` replaced by ``row``."""
-        idx = torch.arange(a.shape[0], device=a.device)
-        idx = idx.reshape((-1,) + (1,) * (a.dim() - 1))
-        return torch.where(idx == self.approx.index, row, a)
-
     # the objective model is quadratic with the MERGED Hessian
     # (B_qn − z0 H); the eigen row is the low-rank quadratic model
     def model_obj_con(self, p=None):
-        eigh = self.approx.eigh
+        eigh, idx = self.approx.eigh, self.approx.index
         if p is None:
-            c = (self._with_eig_row(self.ck, eigh.eval_approximation(None))
+            c = (_with_row(self.ck, idx, eigh.eval_approximation(None))
                  if self.ncon else self.ck)
             return self.fk, c
         f = self.fk + torch.dot(self.gk, p) + 0.5 * torch.dot(
             p, self.approx.mult(p))
         c = self.ck + self.Ak @ p if self.ncon else self.ck
-        return f, self._with_eig_row(c, eigh.eval_approximation(p))
+        return f, _with_row(c, idx, eigh.eval_approximation(p))
 
     def eval_obj_con(self, p):
         return self.model_obj_con(p)
 
     def eval_obj_con_gradient(self, p):
         g = self.gk + self.approx.mult(p)
-        A = self._with_eig_row(
-            self.Ak, self.approx.eigh.eval_approximation_gradient(p))
+        A = _with_row(self.Ak, self.approx.index,
+                      self.approx.eigh.eval_approximation_gradient(p))
         return g, A
 
     def eval_trial_step_and_update(self, update_flag, p, z, zw):

@@ -39,7 +39,8 @@ from .ip_fused import _Run
 from .ops import qn as qnmod
 from .ops.kkt import ProblemData
 from .tr import (FusedTROptions, QPParams, _add_row, _fused_ip_options,
-                 _inner_solve, _qp_Bp, _viol, make_qp_model)
+                 _inner_solve, _qp_Bp, _tr_kkt, _tr_penalties, _tr_radius,
+                 _tr_rho, _viol, make_qp_model)
 from .tree import pytree
 from .utils.options import make_options
 
@@ -158,13 +159,9 @@ def _fused_eig_tr_step(eval_full, qp_model, inf_model, qp_opts, inf_opts,
                           compact, None)
     p, z = st.vars.x, st.vars.z
 
-    # -- model reductions; the eigen row's model value is quadratic ----------
-    gam = state.gamma
+    # -- the model at the step; the eigen row's model value is quadratic ----
     cm = c_model(p)
     fm = fk + torch.dot(gk, p) + 0.5 * torch.dot(p, _qp_Bp(params, p))
-    infeas_k = torch.sum(gam * _viol(ck, nineq))
-    obj_reduc = fk - fm
-    infeas_model = torch.sum(gam * _viol(cm, nineq))
 
     # -- trial evaluation: one eval_full prices the trial and refreshes the
     #    eigen model; state.V warm-starts the eigensolve ---------------------
@@ -188,21 +185,11 @@ def _fused_eig_tr_step(eval_full, qp_model, inf_model, qp_opts, inf_opts,
             qn_new, _, _ = qnmod.qn_update(state.qn, p, y,
                                            accept=trial_finite)
 
-    infeas_t = torch.sum(gam * _viol(ct, nineq))
-    actual_reduc = (fk - ft) + (infeas_k - infeas_t)
-    model_reduc = obj_reduc + (infeas_k - infeas_model)
-    fprec = to.function_precision
-    both_tiny = ((torch.abs(model_reduc) <= fprec)
-                 & (torch.abs(actual_reduc) <= fprec))
-    rho = torch.where(both_tiny | (model_reduc == 0.0), 1.0,
-                      actual_reduc / torch.where(model_reduc == 0.0, 1.0,
-                                                 model_reduc))
+    rho = _tr_rho(to, state.gamma, fk, fm, ft, ck, cm, ct)
     # a NaN rho fails both radius tests and would freeze the radius at a
     # rejected step: any non-finite trial or NaN rho counts as -inf
     rho = torch.where(trial_finite & ~torch.isnan(rho), rho, -float("inf"))
-
-    accepted = ((rho >= to.eta)
-                | ((state.tr_size <= to.tr_min) & trial_finite))
+    accepted, tr_n = _tr_radius(to, state.tr_size, rho, trial_finite)
 
     def sel(a, b):
         return torch.where(accepted, a, b)
@@ -214,40 +201,15 @@ def _fused_eig_tr_step(eval_full, qp_model, inf_model, qp_opts, inf_opts,
     # the multiplier refresh on accept (`update_multipliers`,
     # `ParOptCompactEigenvalueApprox.cpp:183`)
     z0_n = sel(z[index], state.z0)
-    tr = state.tr_size
-    tr_n = torch.where(rho < 0.25, torch.clamp(0.25 * tr, min=to.tr_min),
-                       torch.where(rho > 0.75,
-                                   torch.clamp(1.5 * tr, max=to.tr_max), tr))
 
     gamma_n = state.gamma
     if to.adaptive_gamma:
-        zabs = torch.abs(z)
-        con_infeas = _viol(ck, nineq)
-        model_con_infeas = _viol(cm, nineq)
-        infeas_reduction = con_infeas - model_con_infeas
-        best_reduction = con_infeas - best_con_infeas
-        shrink = ((zabs > to.infeas_tol) & (con_infeas < to.infeas_tol)
-                  & (gamma_n >= 2.0 * zabs))
-        grow = ((con_infeas > to.infeas_tol)
-                & (0.995 * best_reduction > infeas_reduction))
-        gamma_n = torch.where(
-            shrink, torch.clamp(0.5 * (gamma_n + zabs), min=to.gamma_min),
-            torch.where(grow, torch.clamp(1.5 * gamma_n, max=to.gamma_max),
-                        gamma_n))
+        gamma_n = _tr_penalties(to, gamma_n, z, ck, cm, best_con_infeas)
 
     # -- KKT error with the real gradients (`computeKKTError`) --------------
-    r = gk_n - Ak_n.T @ z
-    relax = to.bound_relax
-    r = torch.where((xk_n <= lbv + relax) & (r > 0.0), 0.0, r)
-    r = torch.where((xk_n >= ubv - relax) & (r < 0.0), 0.0, r)
     zmax = torch.clamp(torch.max(torch.abs(z)), min=1.0)
-    l1 = torch.sum(torch.abs(r)) / torch.maximum(
-        torch.sum(torch.abs(gk_n)), zmax)
-    linf = torch.max(torch.abs(r)) / torch.maximum(
-        torch.max(torch.abs(gk_n)), zmax)
-    infeas_new = torch.sum(_viol(ct, nineq))
-    converged = ((infeas_new < to.infeas_tol)
-                 & ((l1 < to.l1_tol) | (linf < to.linf_tol)))
+    l1, linf, infeas_new, converged = _tr_kkt(
+        to, lbv, ubv, xk_n, gk_n, gk_n - Ak_n.T @ z, zmax, ct)
 
     # the trial basis is a good warm start even on rejection (the trial
     # point is near xk): carry it whenever it is finite
@@ -386,10 +348,13 @@ class FusedEigenTR:
               checkpoint_path=None):
         """Run the outer loop, reading ``converged`` after each outer
         iteration; returns (result dict, final state).  Pass a previous
-        final state to resume.  The problem's ``write_output(it, x)`` fires
-        every ``tr_write_output_frequency`` outer iterations.  ``chunk``
-        other than "auto" or None and ``checkpoint_path`` raise: the chunked
-        solve and checkpoints are not ported yet."""
+        final state to resume: the loop runs ``tr_max_iterations`` more
+        outer iterations from it (paropt_tpu's jitted loop stops at that
+        absolute count; ROADMAP queue 3).  The problem's
+        ``write_output(it, x)`` fires every ``tr_write_output_frequency``
+        outer iterations.  ``chunk`` other than "auto" or None and
+        ``checkpoint_path`` raise: the chunked solve and checkpoints are not
+        ported yet."""
         from .utils.chunked import make_write_output_hook, user_write_output
         if chunk not in ("auto", None):
             raise NotImplementedError("the chunked solve is not ported yet")

@@ -810,9 +810,12 @@ class FusedMMA:
               checkpoint_path=None):
         """Run the outer loop: a host loop over outer iterations that reads
         ``converged`` after each.  Returns (result dict, final state).  Pass
-        a previous final state to resume.  The problem's
-        ``write_output(it, x)`` hook fires every ``write_output_frequency``
-        outer iterations; checkpoints are not ported yet."""
+        a previous final state to resume: the loop runs
+        ``mma_max_iterations`` more outer iterations from it (paropt_tpu's
+        jitted loop stops at that absolute count; ROADMAP queue 3).  The
+        problem's ``write_output(it, x)`` hook fires every
+        ``write_output_frequency`` outer iterations; checkpoints are not
+        ported yet."""
         from .utils.chunked import make_write_output_hook, user_write_output
         hook = make_write_output_hook(
             user_write_output(self._problem), self._write_freq,
