@@ -7,11 +7,13 @@ Phases (any failure raises and exits nonzero without the final line):
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit, turns TF32 off and checks it;
-2. build: compiles the CUDA kernels from paropt_torch/csrc with nvcc;
+2. build: compiles the CUDA kernels from paropt_torch/csrc with nvcc, and
+   the host sparse Cholesky from src_native/ with g++;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged sizes (phi_gram as the factor setup
    calls it: the stack as two row blocks, bw = 0; qn_roll_update also at
-   the eigen TR's n = 65,536 and 288 of phases 26 and 27), and two runs of each
+   the eigen TR's n = 65,536 and 288 of phases 26 and 27 and at phase 29's
+   n = 8,188), and two runs of each
    quasi-definite kernel bitwise equal.  At the main path's shapes in
    float32: the device time of kernel and plain version (CUDA events,
    median of 20 runs after warm-up, L2 flushed), the bound (the bytes the
@@ -230,6 +232,37 @@ FusedEigenTR and the host EigenSubproblem); each prints its wall seconds:
 
 The kernels line also carries each kernel's launches in phase 26
 (eig_launches).
+
+Phases 29-31 run the general-CSR path (the host InteriorPoint with the
+native sparse Cholesky, g++-built from src_native/ into
+build/paropt_torch_sparse/, factoring on the host) and the callback path,
+with the trajectory, COPS and truss models; each prints its wall seconds:
+
+29. BrachistochroneCollocation(2048) in float64, 8,188 variables and 6,141
+   CSR equalities, through `Optimizer` ('ip') with the dymos options of
+   tests/test_brachistochrone.py:13-21.  Checks: converged; tf within
+   1e-3 relative of 1.8016; max defect < 1e-6; iterations within 10 of
+   paropt_tpu's 71 (its CPU run); no quasi-definite kernel launched and
+   qn_roll_update launched.  It prints seconds, host reads and the bytes
+   moved each way per iteration, the host factor's and solves' seconds as
+   a share of wall time, the factor's fill (nnz(L), fill, supernodes),
+   the launches and the peak device memory;
+30. ElectronCSR(200) (COPS 3.0's largest instance; registry defaults,
+   abs_res_tol 1e-6): converged, fobj within 1e-4 relative of the Thomson
+   minimum 18438.84, sphere constraints < 1e-6; SSTOCollocation(160) with
+   the dymos options: converged, final time within 1e-3 relative of
+   481.8 s, defects and boundary constraints < 1e-6.  Each prints phase
+   29's figures;
+31. card against host in float64 through the host InteriorPoint:
+   ElectronCSR(20), Electron(20), Polygon(6), SSTOCollocation(40),
+   BrachistochroneCollocation(48), the callback-only SparseRosenbrock,
+   TrussSizing, DMOTruss(4, 3) (40 iterations, a depth cut) and
+   CartPole(nsteps=12): equal iteration, evaluation and gradient counts,
+   fobj within 1e-9 relative (plus 1e-14 absolute: the Rosenbrock ends at
+   fobj ~ 1e-16, roundoff); DMOTruss's launches are printed.
+
+The kernels line also carries each kernel's launches in phases 29 and 30
+(csr_launches, electron_launches, ssto_launches).
 Only torch and numpy are used.
 """
 
@@ -267,6 +300,7 @@ L2_FLUSH_BYTES = 256 << 20   # written between timed runs; the L2 is 50 MB
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 SPIN_CYCLES = 100_000_000    # ~50 ms at the H100's clock
+CSR_N = 8188                 # phase 29's design variables
 
 
 def log(msg):
@@ -351,6 +385,14 @@ def phase_build():
     nvcc = (f"{_build.build_seconds:.2f} s" if _build.build_seconds
             else "cached")
     log(f"[build] kernels ready in {wall:.2f} s (nvcc {nvcc})")
+    # the host sparse Cholesky of phases 29-31, built with g++ from
+    # src_native/ here so that no phase's factor time holds the build
+    from paropt_torch.ops import sparse_native
+    t0 = time.perf_counter()
+    lib = sparse_native.load_library()
+    log(f"[build] native sparse library ready in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({Path(lib._name).relative_to(ROOT)})")
     logfile = _build.BUILD_ROOT / _build.source_hash() / "build.log"
     if logfile.exists():
         # ptxas -v: each kernel's name, then its spills and registers
@@ -441,7 +483,7 @@ def phase_kernels(torch):
     #    at the n of the main path, of the eigen TR paths (phases 26 and
     #    27) and a ragged n
     for n in (N_MAIN, math.prod(EIG3D_MESH), math.prod(EIG_BENCH_MESH),
-              1000):
+              CSR_N, 1000):
         for sdt, cdt in ((torch.float32, torch.float32),
                          (torch.float64, torch.float64),
                          (torch.bfloat16, torch.float32)):
@@ -2344,6 +2386,198 @@ def phase_eig_crosscheck(torch):
         f"{time.perf_counter() - t_phase:.2f} s")
 
 
+# --- the general-CSR path and the trajectory, COPS and truss models -------
+# (phases 29-31)
+
+# the option set of the reference's dymos examples (tests/
+# test_brachistochrone.py:13-21, examples/ssto.py)
+DYMOS_OPTS = {"algorithm": "ip", "norm_type": "infinity",
+              "qn_subspace_size": 10,
+              "starting_point_strategy": "least_squares_multipliers",
+              "qn_update_type": "damped_update", "abs_res_tol": 1e-6,
+              "barrier_strategy": "monotone", "armijo_constant": 1e-5,
+              "penalty_gamma": 100.0, "max_major_iters": 500}
+# paropt_tpu's host InteriorPoint on the CPU in float64 at the same sizes
+# and options: iterations and objective
+JAX_BRACH_2048 = (71, 1.8016040)
+JAX_ELECTRON_200 = (305, 18438.9228)
+JAX_SSTO_160 = (99, 4.81728)
+BRACH_TF = 1.8016     # the reference's dymos assertion (rel 1e-3)
+THOMSON_200 = 18438.84   # the Thomson minimum for 200 charges (rel 1e-4)
+SSTO_TF = 481.8       # dymos's documented SSTO optimum, s (rel 1e-3)
+
+
+def _csr_solve(torch, tag, prob, opts):
+    """The host InteriorPoint through `Optimizer` on a CSR problem on the
+    card; prints the path's figures and returns (result, launches)."""
+    opt, res, wall, launches, peak, _ = _host_route(
+        torch, prob, dict(opts, algorithm="ip"))
+    ip = opt._inner
+    check(ip._csr_mat is not None, f"{tag}: not the general-CSR path")
+    mat = ip._csr_mat.mat
+    niter = max(res["niter"], 1)
+    syncs = ip.syncs
+    log(f"{tag} converged={res['converged']} reason={res['reason']!r} "
+        f"iterations {res['niter']}; fobj {res['fobj']:.9e}")
+    log(f"{tag} wall {wall:.3f} s = {wall / niter * 1e3:.2f} ms per "
+        f"iteration; {syncs.count} host reads = {syncs.count / niter:.1f} "
+        f"per iteration; {syncs.bytes_to_host / niter / 1e3:.1f} kB to the "
+        f"host and {syncs.bytes_to_device / niter / 1e3:.1f} kB to the card "
+        f"per iteration")
+    log(f"{tag} host factor: {mat.nfactor} factorizations "
+        f"{mat.factor_seconds:.3f} s ({100 * mat.factor_seconds / wall:.1f}% "
+        f"of wall), solves {mat.solve_seconds:.3f} s "
+        f"({100 * mat.solve_seconds / wall:.1f}%); {mat.get_factor_info()}")
+    log(f"{tag} peak memory {peak:.4f} GiB; kernel launches {launches}")
+    check(launches["quasi_def_apply"] == 0 and launches["phi_gram"] == 0,
+          f"{tag}: a quasi-definite kernel ran on the CSR path: {launches}")
+    check(launches["qn_roll_update"] > 0,
+          f"{tag}: the QN update kernel was not launched")
+    check(torch.isfinite(res["x"]).all().item() and res["x"].is_cuda,
+          f"{tag}: bad final x")
+    return res, launches
+
+
+def phase_csr_full(torch):
+    """Phase 29: BrachistochroneCollocation(2048) in float64 with the dymos
+    options through the host InteriorPoint on the card; returns the kernel
+    launches of the solve."""
+    from paropt_torch.models import BrachistochroneCollocation
+    t_phase = time.perf_counter()
+    tag = "[csr brachistochrone N=2048 float64]"
+    prob = BrachistochroneCollocation(2048, dtype=torch.float64,
+                                      device="cuda")
+    log(f"{tag} {prob.nvars} variables, {prob.nwcon} CSR equalities, "
+        f"{int(prob.csr_rowp[-1])} Jacobian entries")
+    res, launches = _csr_solve(torch, tag, prob, DYMOS_OPTS)
+    tf = float(res["x"][prob._otf])
+    defect = torch.max(torch.abs(prob.sparse_constraints(res["x"]))).item()
+    log(f"{tag} tf {tf:.7f} (reference {BRACH_TF}, paropt_tpu on the CPU "
+        f"{JAX_BRACH_2048[1]} in {JAX_BRACH_2048[0]} iterations); max "
+        f"defect {defect:.3e}; phase 29 took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    check(res["converged"], f"{tag} did not converge: {res['reason']!r}")
+    check(abs(tf - BRACH_TF) <= 1e-3 * BRACH_TF, f"{tag} tf {tf!r}")
+    check(defect < 1e-6, f"{tag} max defect {defect:.3e}")
+    check(abs(res["niter"] - JAX_BRACH_2048[0]) <= 10,
+          f"{tag} {res['niter']} iterations, paropt_tpu {JAX_BRACH_2048[0]}")
+    return launches
+
+
+def phase_cops_ssto(torch):
+    """Phase 30: ElectronCSR(200) (COPS 3.0's largest electron instance)
+    and SSTOCollocation(160) in float64 on the card; returns the kernel
+    launches of each solve."""
+    from paropt_torch.models import ElectronCSR, SSTOCollocation
+    t_phase = time.perf_counter()
+    tag = "[csr electron n=200 float64]"
+    prob = ElectronCSR(200, dtype=torch.float64, device="cuda")
+    res, elec = _csr_solve(torch, tag, prob, {"abs_res_tol": 1e-6})
+    sphere = torch.max(torch.abs(prob.sparse_constraints(res["x"]))).item()
+    log(f"{tag} fobj {res['fobj']:.6f} (Thomson minimum {THOMSON_200}, "
+        f"paropt_tpu on the CPU {JAX_ELECTRON_200[1]} in "
+        f"{JAX_ELECTRON_200[0]} iterations); max |sphere constraint| "
+        f"{sphere:.3e}")
+    check(res["converged"], f"{tag} did not converge: {res['reason']!r}")
+    check(abs(res["fobj"] - THOMSON_200) <= 1e-4 * THOMSON_200,
+          f"{tag} fobj {res['fobj']!r}")
+    check(sphere < 1e-6, f"{tag} sphere constraints {sphere:.3e}")
+
+    tag = "[csr ssto N=160 float64]"
+    prob = SSTOCollocation(160, dtype=torch.float64, device="cuda")
+    res, ssto = _csr_solve(torch, tag, prob, DYMOS_OPTS)
+    tf = prob.final_time(res["x"])
+    defect = torch.max(torch.abs(prob.sparse_constraints(res["x"]))).item()
+    bc = torch.max(torch.abs(prob.constraints(res["x"]))).item()
+    log(f"{tag} final time {tf:.4f} s (dymos {SSTO_TF} s, paropt_tpu on "
+        f"the CPU {100 * JAX_SSTO_160[1]:.3f} s in {JAX_SSTO_160[0]} "
+        f"iterations); max defect {defect:.3e}, max boundary constraint "
+        f"{bc:.3e}; phase 30 took {time.perf_counter() - t_phase:.2f} s")
+    check(res["converged"], f"{tag} did not converge: {res['reason']!r}")
+    check(abs(tf - SSTO_TF) <= 1e-3 * SSTO_TF, f"{tag} final time {tf!r}")
+    check(defect < 1e-6 and bc < 1e-6,
+          f"{tag} defects {defect:.3e}, boundary constraints {bc:.3e}")
+    return elec, ssto
+
+
+def _callback_rosenbrock(torch, device):
+    """paropt_torch's SparseRosenbrock without its structured Jacobian:
+    the callback-product path."""
+    from paropt_torch.models.analytic import SparseRosenbrock
+
+    class CallbackOnly(SparseRosenbrock):
+        def sparse_jacobian(self, x):
+            raise NotImplementedError
+
+        def sparse_inner_product(self, x, cvec):
+            Aw = torch.func.jacrev(self.sparse_constraints)(x)
+            return ((Aw * cvec) @ Aw.T).reshape(-1, 1, 1)
+
+    return CallbackOnly(dtype=torch.float64, device=device)
+
+
+def phase_csr_crosscheck(torch):
+    """Phase 31: the host InteriorPoint in float64 on the card and on the
+    CPU for each new model and the callback path: equal iteration counts,
+    fobj within 1e-9 relative."""
+    from paropt_torch.models import (BrachistochroneCollocation, CartPole,
+                                     DMOTruss, Electron, ElectronCSR,
+                                     Polygon, SSTOCollocation, TrussSizing)
+    from paropt_torch.ops import kernels
+    t_phase = time.perf_counter()
+    f64 = dict(dtype=torch.float64)
+    tol6 = {"abs_res_tol": 1e-6}
+    cases = (
+        ("ElectronCSR(20)", lambda d: ElectronCSR(20, device=d, **f64), tol6),
+        ("Electron(20)", lambda d: Electron(20, device=d, **f64), tol6),
+        ("Polygon(6)", lambda d: Polygon(6, device=d, **f64), tol6),
+        ("SSTOCollocation(40)",
+         lambda d: SSTOCollocation(40, device=d, **f64), DYMOS_OPTS),
+        ("BrachistochroneCollocation(48)",
+         lambda d: BrachistochroneCollocation(48, device=d, **f64),
+         DYMOS_OPTS),
+        ("SparseRosenbrock (callback products)",
+         lambda d: _callback_rosenbrock(torch, d), {"abs_res_tol": 1e-7}),
+        ("TrussSizing(4, 3)", lambda d: TrussSizing(device=d, **f64), tol6),
+        # 40 iterations of the 268 the full solve takes (a depth cut)
+        ("DMOTruss(4, 3)", lambda d: DMOTruss(4, 3, device=d, **f64),
+         {"abs_res_tol": 1e-5, "max_major_iters": 40}),
+        # nsteps = 12 converges in 47 iterations (paropt_tpu and the port
+        # on the CPU); at 8 the solve wanders for thousands of iterations,
+        # and 100 bounds the cost if it ever does here
+        ("CartPole(nsteps=12)",
+         lambda d: CartPole(nsteps=12, device=d, **f64),
+         dict(tol6, max_major_iters=100)),
+    )
+    dmo_launches = None
+    for name, make, opts in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            opt, res, _, launches, _, _ = _host_route(
+                torch, make(dev), dict(opts, algorithm="ip"))
+            ip = opt._inner
+            out[dev] = (res["fobj"], (res["niter"], res["neval"],
+                                      res["ngeval"]))
+            log(f"[csr crosscheck] {name} {dev}: fobj {res['fobj']:.15e}, "
+                f"(iterations, evaluations, gradients) {out[dev][1]}, "
+                f"converged={res['converged']}, host reads "
+                f"{ip.syncs.count}, launches {launches} "
+                f"({time.perf_counter() - t0:.2f} s)")
+            if dev == "cuda" and name.startswith("DMOTruss"):
+                dmo_launches = launches
+        (fc, ic), (fh, ih) = out["cuda"], out["cpu"]
+        check(ic == ih, f"{name}: counts differ: cuda {ic}, cpu {ih}")
+        # an absolute 1e-14 for the solves that end at fobj = 0, where
+        # only roundoff is left (as tests/_torch_parity.py holds them)
+        check(abs(fc - fh) <= 1e-9 * abs(fh) + 1e-14,
+              f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+    log(f"[csr crosscheck] DMOTruss's sparse pattern is 'blocked', not "
+        f"'blocked_t': its launches on the card were {dmo_launches}")
+    log(f"[csr crosscheck] phase 31 took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -2379,6 +2613,9 @@ def main():
     eig_launches = phase_eig3d_full(torch)
     phase_eig_bench(torch)
     phase_eig_crosscheck(torch)
+    csr_launches = phase_csr_full(torch)
+    electron_launches, ssto_launches = phase_cops_ssto(torch)
+    phase_csr_crosscheck(torch)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -2391,6 +2628,9 @@ def main():
                      "batched_launches": batched_launches[name],
                      "batched_tr_launches": batched_tr_launches[name],
                      "eig_launches": eig_launches[name],
+                     "csr_launches": csr_launches[name],
+                     "electron_launches": electron_launches[name],
+                     "ssto_launches": ssto_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

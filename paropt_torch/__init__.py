@@ -5,13 +5,17 @@ counterpart:
 
 - ``dtypes``, ``ops.veclib``: dtype resolution and vector reductions;
 - ``problem``, ``models``: the Problem protocol (autodiff through
-  ``torch.func``), the synthetic topology workload, the 2-D SIMP
-  compliance models (``models.fem_topology``: FEMTopology, DMOFEMTopology),
-  the 3-D voxel ones (``models.fem_topology3d``), the frequency-constrained
-  2-D and 3-D models (``models.fem_frequency``) and the small analytic
-  problems (``models.analytic``);
+  ``torch.func``) and the general-CSR ``CSRSparseProblem``, the synthetic
+  topology workload, the 2-D SIMP compliance models
+  (``models.fem_topology``: FEMTopology, DMOFEMTopology), the 3-D voxel
+  ones (``models.fem_topology3d``), the frequency-constrained 2-D and 3-D
+  models (``models.fem_frequency``), the small analytic problems
+  (``models.analytic``), COPS (``models.cops``), the trajectory
+  transcriptions (``models.brachistochrone``, ``models.ssto``,
+  ``models.cartpole``) and the trusses (``models.truss``);
 - ``ops.qn``, ``ops.kkt``: the compact quasi-Newton state and the KKT
-  factor/solve;
+  factor/solve; ``ops.sparse_native``: the host sparse Cholesky of the
+  general-CSR path, built with g++ from ``src_native/`` at first use;
 - ``ip``: the host-loop interior-point method (InteriorPoint);
 - ``ip_fused``: the fused interior-point major iteration, its host loop and
   the facade's whole solve;
@@ -38,7 +42,8 @@ resolves to the CUDA card (``dtypes.resolve_device``).
 """
 
 from .dtypes import default_float, resolve_device, resolve_dtype
-from .problem import Problem, SparseJacobian, check_gradients
+from .problem import (CSRSparseProblem, Problem, SparseJacobian,
+                      check_gradients)
 from .ops.qn import QNState, qn_init
 from .ip import InteriorPoint
 from .ip_fused import FusedIP, fused_ip_optimize
@@ -47,7 +52,8 @@ from .tr import FusedTR, TrustRegion
 from .optimizer import Optimizer
 from .utils.options import make_options
 
-__all__ = ["Problem", "SparseJacobian", "check_gradients", "QNState",
+__all__ = ["Problem", "SparseJacobian", "CSRSparseProblem",
+           "check_gradients", "QNState",
            "qn_init", "InteriorPoint", "FusedIP", "fused_ip_optimize",
            "MMA", "FusedMMA", "fused_mma_solve", "TrustRegion", "FusedTR",
            "Optimizer", "make_options", "default_float", "resolve_dtype",

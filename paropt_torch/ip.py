@@ -22,10 +22,18 @@ Also here: the merit-function pieces the fused solvers share
 (``_barrier_terms``, ``_infeas_l2``, ``_bound_pads``), the host-read counter
 `HostSyncs` and the ``qn_storage_dtype`` mapping.
 
+A `CSRSparseProblem` takes the general-CSR path: its Schur complement is
+factored on the host by the native sparse Cholesky (`kkt.HostCSRFactor`),
+which reads Dinv, C0 and every right-hand side from the device.  A problem
+whose ``sparse_jacobian`` raises NotImplementedError takes the callback
+path: its Jacobian products and block inner product come from the
+problem's ``sparse_jacobian_vec`` / ``_tvec`` / ``sparse_inner_product``.
+On both paths the Mehrotra predictor-corrector strategy takes JAX's eager
+step (the plain step at the adapted μ), as the JAX package does there.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item: checkpoints (``write_solution_file``, ``read_solution_file``,
-``optimize(checkpoint=...)``; item 13), the general-CSR and callback-sparse
-constraint paths (item 11) and sharded state (item 14).
+``optimize(checkpoint=...)``; item 13) and sharded state (item 14).
 """
 
 from __future__ import annotations
@@ -61,10 +69,13 @@ LS_SHORT_STEP = 32
 
 class HostSyncs:
     """Reads device scalars on the host and counts the reads: each one
-    waits for the device."""
+    waits for the device.  ``bytes_to_host`` and ``bytes_to_device`` add up
+    the arrays moved by `array` and `upload`."""
 
     def __init__(self):
         self.count = 0
+        self.bytes_to_host = 0
+        self.bytes_to_device = 0
 
     def __call__(self, flag: torch.Tensor) -> bool:
         self.count += 1
@@ -84,7 +95,16 @@ class HostSyncs:
     def array(self, t) -> np.ndarray:
         """A tensor as a numpy array."""
         self.count += 1
+        if t.device.type != "cpu":
+            self.bytes_to_host += t.numel() * t.element_size()
         return t.detach().cpu().numpy()
+
+    def upload(self, a: np.ndarray, device) -> torch.Tensor:
+        """A numpy array as a tensor of its dtype on ``device`` (a copy to
+        the card does not wait for it, so it is not counted as a read)."""
+        if torch.device(device).type != "cpu":
+            self.bytes_to_device += a.nbytes
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _resolve_qn_storage(opt_value: str, compute_dtype):
@@ -158,10 +178,12 @@ def _qn_term(compact, use_qn: bool):
 
 
 def _compute_step(v: IPVars, d: ProblemData, compact, mu, rel_bound_barrier,
-                  qn_sigma, refine_steps: int, use_qn: bool) -> IPVars:
+                  qn_sigma, refine_steps: int, use_qn: bool,
+                  csr_mat=None) -> IPVars:
     r = kkt.kkt_residual(v, d, mu, rel_bound_barrier)
     cq = _qn_term(compact, use_qn)
-    f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=qn_sigma)
+    f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=qn_sigma,
+                             csr_mat=csr_mat)
     return kkt.solve_kkt(v, d, f, r, refine_steps=refine_steps,
                          qn_compact=cq)
 
@@ -397,18 +419,14 @@ class InteriorPoint:
         o = self.options
         self.dtype = torch.float64 if o["dtype"] == "float64" \
             else torch.float32
-        self.syncs = HostSyncs()
+        # a CSR problem counts its own reads (its Jacobian fills) here too
+        self.syncs = getattr(problem, "syncs", None) or HostSyncs()
 
         # counters (`getIterationCounters`, ParOptInteriorPoint.h:203-217)
         self.niter = 0
         self.neval = 0
         self.ngeval = 0
         self.nhvec = 0
-
-        if getattr(problem, "use_csr_path", False):
-            raise NotImplementedError(
-                "the general-CSR constraint path is not ported yet "
-                "(ROADMAP queue 1 item 11)")
 
         # bounds + design variables (these fix the device)
         self._init_design_and_bounds()
@@ -445,16 +463,21 @@ class InteriorPoint:
         self.vars: Optional[IPVars] = None
         self._init_vars()
 
-        # a problem that does not provide its structured sparse Jacobian
-        # would need the callback-product path, which is not ported
-        if nwcon > 0:
+        # general-CSR constraints: the host sparse factor of Cw
+        self._csr_mat = None
+        if getattr(problem, "use_csr_path", False):
+            self._csr_mat = kkt.HostCSRFactor(problem.create_quasi_def_mat(),
+                                              self.syncs)
+        # no structured Jacobian: the callback products.  Only the "not
+        # provided" signal demotes a problem to them; any other error of
+        # the user's sparse_jacobian propagates
+        self._callback_sparse = False
+        if nwcon > 0 and self._csr_mat is None:
             try:
                 problem.sparse_jacobian(self.x0)
             except NotImplementedError:
-                raise NotImplementedError(
-                    "sparse constraints without sparse_jacobian (the "
-                    "callback-product path) are not ported yet (ROADMAP "
-                    "queue 1 item 11)") from None
+                self._callback_sparse = True
+        self._eager = self._csr_mat is not None or self._callback_sparse
 
         self._logger = None
         self._converged_reason = ""
@@ -612,22 +635,51 @@ class InteriorPoint:
                 self._tensor(A).reshape(self.problem.ncon,
                                         self.problem.nvars))
 
+    def _from_user(self, a) -> torch.Tensor:
+        """A user callback's result in the solve's dtype on its device,
+        its bytes counted when it arrives from the host."""
+        if not isinstance(a, torch.Tensor):
+            a = self.syncs.upload(np.asarray(a), self.device)
+        return self._tensor(a)
+
+    def _callbacks(self):
+        """(matvec, rmatvec, inner_blocks) of the problem's sparse operator
+        at the current point; a batch of vectors goes one row at a time."""
+        prob, x_cur = self.problem, self.vars.x
+
+        def rows(fn):
+            def apply(b):
+                if b.dim() == 1:
+                    return self._from_user(fn(x_cur, b))
+                return torch.stack([self._from_user(fn(x_cur, row))
+                                    for row in b])
+            return apply
+
+        return (rows(prob.sparse_jacobian_vec),
+                rows(prob.sparse_jacobian_tvec),
+                lambda dv: self._from_user(prob.sparse_inner_product(x_cur,
+                                                                     dv)))
+
     def _make_data(self) -> ProblemData:
         prob = self.problem
-        if prob.nwcon > 0:
+        callbacks = None
+        Aw_cols = Aw_vals = None
+        nwblock, layout = 1, "gather"
+        if prob.nwcon > 0 and self._callback_sparse:
+            callbacks, nwblock = self._callbacks(), prob.nwblock
+        elif prob.nwcon > 0:
             Aw = prob.sparse_jacobian(self.vars.x)
             Aw_cols, Aw_vals = Aw.cols, self._tensor(Aw.vals)
             nwblock, layout = prob.nwblock, Aw.layout
-        else:
-            Aw_cols = Aw_vals = None
-            nwblock, layout = 1, "gather"
+            if self._csr_mat is not None:
+                self._csr_mat.set_values(prob._data)
         return ProblemData(
             g=self.g, A=self.A, c=self.c, cw=self.cw, lb=self.lb, ub=self.ub,
             lb_mask=self.lb_mask, ub_mask=self.ub_mask,
             gamma_s=self.gamma_s, gamma_t=self.gamma_t,
             gamma_sw=self.gamma_sw, gamma_tw=self.gamma_tw,
             Aw_cols=Aw_cols, Aw_vals=Aw_vals, nwblock=nwblock,
-            Aw_layout=layout)
+            Aw_layout=layout, Aw_callbacks=callbacks)
 
     # -- multiplier initialization ------------------------------------------
 
@@ -651,6 +703,11 @@ class InteriorPoint:
         small = 1e-4
         rhs = -(d.g - v.zl + v.zu)
         ones = torch.ones_like(v.x)
+        if self._csr_mat is not None:
+            # C = small in float64, as JAX's x64 default makes it
+            self._csr_mat.set_values(self.problem._data)
+            self._csr_mat.factor(ones, torch.full(
+                (nwcon,), small, dtype=torch.float64, device=self.device))
         if nwcon > 0:
             nb = d.nwblock
             Cw = d.Aw_inner_blocks(ones)
@@ -662,7 +719,8 @@ class InteriorPoint:
         # quasi-definite system with D = I, C = small
         f0 = kkt.KKTFactor(Dinv=ones, Gamma=None, C0=None, Cw_chol=Cw_chol,
                            Xa=None, Wa=None, G_lu=None, Zqn=None, Phi_x=None,
-                           Phi_z=None, Phi_w=None, Ce_inv=None)
+                           Phi_z=None, Phi_w=None, Ce_inv=None,
+                           csr_solver=self._csr_mat)
         zw0 = torch.zeros(nwcon, **kw)
         if ncon > 0:
             Xa, _ = kkt.quasi_def_solve(f0, d, d.A,
@@ -696,7 +754,8 @@ class InteriorPoint:
                   and not o["sequential_linear_method"]
                   and not o["use_diag_hessian"])
         p = _compute_step(v, d, self._qn_compact(), self._scalar(0.0),
-                          o["rel_bound_barrier"], o["qn_sigma"], 0, use_qn)
+                          o["rel_bound_barrier"], o["qn_sigma"], 0, use_qn,
+                          self._csr_mat)
         amin = o["start_affine_multiplier_min"]
 
         def aff(val, st, mask=None):
@@ -1035,7 +1094,8 @@ class InteriorPoint:
         use_qn = (self.qn is not None and bool(o["use_qn_gmres_precon"])
                   and not o["sequential_linear_method"])
         cq = compact if use_qn else (compact[0], None, None)
-        f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=o["qn_sigma"])
+        f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=o["qn_sigma"],
+                                 csr_mat=self._csr_mat)
 
         def precon(w):
             return kkt.solve_kkt(v, d, f, tmap(torch.neg, w), qn_compact=cq)
@@ -1260,7 +1320,8 @@ class InteriorPoint:
 
         def step(compact, use_qn, mu_j, refine=refine_steps):
             return _compute_step(self.vars, d, compact, mu_j, rbb,
-                                 o["qn_sigma"], refine, use_qn)
+                                 o["qn_sigma"], refine, use_qn,
+                                 self._csr_mat)
 
         def scale_and_merit(p, mu_j, comp_j, compact):
             """The DQN/SLP rungs' rescaled step and merit (no QN term)."""
@@ -1342,6 +1403,12 @@ class InteriorPoint:
                 prime, dual, infeas_n, res_norm, comp = read(*norms)
                 comp_j = norms[4]
 
+            if (self._csr_mat is not None
+                    and (o["output_level"] > 0 or k == 0)):
+                # the factor's fill-in ('MatInfo:' rows,
+                # ParOptInteriorPoint.cpp:4768-4775)
+                self._logger.write(
+                    f"MatInfo: {self._csr_mat.get_factor_info()}\n")
             self._logger.log(k, self.neval, self.ngeval, self.nhvec,
                              alpha_prev, alpha_xprev, alpha_zprev,
                              fobj_k, prime, infeas_n, dual,
@@ -1420,7 +1487,8 @@ class InteriorPoint:
                             0.01)
                 self.mu = max(sigma * comp, 0.09999 * abs_res_tol)
                 mu_j = self._scalar(self.mu)
-                if barrier_strategy == "mehrotra_predictor_corrector":
+                if (barrier_strategy == "mehrotra_predictor_corrector"
+                        and not self._eager):
                     p_aff_s = p_aff.scaled(min(ax_a, 1.0), min(az_a, 1.0))
                     p = _compute_step_mpc(self.vars, d, compact, mu_j, rbb,
                                           o["qn_sigma"], p_aff_s,

@@ -20,6 +20,11 @@ Routing on the (blocked_t, nwblock == 1) layout of the main path:
   present: one sweep reads the [2m+ncon, n] stack [Z; A] once.
 
 On a CUDA tensor the kernels launch; on a CPU tensor their plain versions run.
+
+The general-CSR path factors Cw, which is not block diagonal there, on the
+host (`HostCSRFactor` over `sparse_native.CSRQuasiDefMat`) and bypasses both
+kernels; a problem without a structured Jacobian passes its products as
+``ProblemData.Aw_callbacks``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from ..tree import pytree, static_field, tmap
 from . import kernels
 from .veclib import matmul
 
-__all__ = ["IPVars", "ProblemData", "KKTFactor", "zero_vars",
+__all__ = ["IPVars", "ProblemData", "KKTFactor", "HostCSRFactor",
+           "zero_vars",
            "detect_aw_layout", "kkt_residual", "setup_kkt_factor",
            "quasi_def_solve", "solve_kkt", "apply_kkt_matrix",
            "reduced_rhs", "recover_full_step", "max_step_lengths",
@@ -123,7 +129,9 @@ class ProblemData:
 
     ``Aw_vals_t`` is the [k, nwcon] transpose of ``Aw_vals``, stored
     contiguous once for the blocked_t layout (the kernels read it every
-    solve); it is filled in at construction when not given."""
+    solve); it is filled in at construction when not given.
+    ``Aw_callbacks``, a (matvec, rmatvec, inner_blocks) triple of functions,
+    stands in for the structured Jacobian of a problem that has none."""
     g: torch.Tensor                 # [n] objective gradient
     A: torch.Tensor                 # [ncon, n] dense constraint Jacobian
     c: torch.Tensor                 # [ncon]
@@ -141,6 +149,7 @@ class ProblemData:
     Aw_vals_t: Optional[torch.Tensor] = None  # [k, nwcon] (blocked_t)
     nwblock: int = static_field(1)
     Aw_layout: str = static_field("gather")
+    Aw_callbacks: Any = static_field(None)
 
     def __post_init__(self):
         if (self.Aw_layout == "blocked_t" and self.Aw_vals_t is None
@@ -162,6 +171,8 @@ class ProblemData:
 
     def Aw_matvec(self, px):
         """Aw @ px for px [..., n] -> [..., nwcon]."""
+        if self.Aw_callbacks is not None:
+            return self.Aw_callbacks[0](px)
         nwcon, k = self.Aw_cols.shape
         if self.Aw_layout == "blocked_t":
             shaped = px.reshape(px.shape[:-1] + (k, nwcon))
@@ -174,6 +185,8 @@ class ProblemData:
 
     def Aw_rmatvec(self, pzw):
         """Aw' @ pzw for pzw [..., nwcon] -> [..., n]."""
+        if self.Aw_callbacks is not None:
+            return self.Aw_callbacks[1](pzw)
         if self.Aw_layout == "blocked_t":
             contrib = self.Aw_vals_t * pzw[..., None, :]  # [..., k, nwcon]
             return contrib.reshape(contrib.shape[:-2] + (self.n,))
@@ -188,6 +201,8 @@ class ProblemData:
     def Aw_inner_blocks(self, dvec):
         """Blocks of Aw @ diag(dvec) @ Aw' -> [nblocks, nwblock, nwblock]."""
         nb = self.nwblock
+        if self.Aw_callbacks is not None:
+            return self.Aw_callbacks[2](dvec)
         nwcon, k = self.Aw_cols.shape
         if self.Aw_layout == "blocked_t" and nb == 1:
             dv = dvec.reshape(k, nwcon)
@@ -255,6 +270,42 @@ class KKTFactor:
     Phi_z: Optional[torch.Tensor]      # [K, ncon]
     Phi_w: Optional[torch.Tensor]      # [K, nwcon]
     Ce_inv: Optional[torch.Tensor]     # explicit inverse of Ce (K x K)
+    csr_solver: Any = static_field(None)  # HostCSRFactor (general CSR)
+
+
+class HostCSRFactor:
+    """The device side of the host sparse factor of the general-CSR path.
+
+    ``mat`` (a `sparse_native.CSRQuasiDefMat`) factors and solves on the
+    host in float64; ``syncs`` (a `HostSyncs`) counts each read of a device
+    tensor to the host and the bytes moved each way.  `factor` reads Dinv
+    and C0 in one transfer each; `solve` reads its right-hand sides in one
+    transfer and returns the float64 result in their dtype on their device.
+    (The JAX package keeps float64 there, and a float32 solve then turns
+    float64 after its first step; torch does not promote a matrix product
+    of mixed dtypes, so the port keeps the solve's dtype.)"""
+
+    def __init__(self, mat, syncs):
+        self.mat = mat
+        self.syncs = syncs
+
+    def set_values(self, data) -> None:
+        self.mat.set_values(data)
+
+    def get_factor_info(self) -> str:
+        return self.mat.get_factor_info()
+
+    def factor(self, Dinv: torch.Tensor, C0: torch.Tensor) -> None:
+        self.mat.factor(self.syncs.array(Dinv), self.syncs.array(C0))
+
+    def solve(self, rw: torch.Tensor) -> torch.Tensor:
+        """Cw⁻¹ rw for rw [nwcon] or [K, nwcon]."""
+        host = self.syncs.array(rw)
+        if host.ndim == 1:
+            y = self.mat.solve(host)
+        else:
+            y = self.mat.solve(np.asfortranarray(host.T)).T
+        return self.syncs.upload(y, rw.device).to(rw.dtype)
 
 
 def _bound_quotients(v: IPVars, d: ProblemData):
@@ -279,10 +330,12 @@ def _chol_solve_blocks(chol, b):
 def quasi_def_solve(f: KKTFactor, d: ProblemData, bx, bw):
     """Solve [[D, -Aw'], [Aw, C0]] [yx; yw] = [bx; bw] via the block-diagonal
     Schur complement Cw = C0 + Aw·D⁻¹·Aw'.  Batched over leading dims of
-    bx [..., n] / bw [..., nwcon]."""
+    bx [..., n] / bw [..., nwcon].  With a `csr_solver` installed (the
+    general-CSR path), Cw is a general sparse matrix factored on the host."""
     if d.nwcon == 0:
         return f.Dinv * bx, bw
-    if d.Aw_layout == "blocked_t" and d.nwblock == 1:
+    if (d.Aw_layout == "blocked_t" and d.nwblock == 1
+            and f.csr_solver is None):
         dt = f.Dinv.dtype
         k, nwcon = d.Aw_vals_t.shape
         bx3 = bx.to(dt).reshape(-1, k, nwcon).contiguous()
@@ -292,7 +345,10 @@ def quasi_def_solve(f: KKTFactor, d: ProblemData, bx, bw):
             f.Dinv.reshape(k, nwcon), cwinv, d.Aw_vals_t, bx3, bw2)
         return yx3.reshape(bx.shape), yw2.reshape(bw.shape)
     rw = bw - d.Aw_matvec(f.Dinv * bx)
-    yw = _chol_solve_blocks(f.Cw_chol, rw)
+    if f.csr_solver is not None:
+        yw = f.csr_solver.solve(rw)
+    else:
+        yw = _chol_solve_blocks(f.Cw_chol, rw)
     yx = f.Dinv * (bx + d.Aw_rmatvec(yw))
     return yx, yw
 
@@ -321,10 +377,11 @@ def _g_solve_rows(G_lu, rhs: torch.Tensor, ncon: int) -> torch.Tensor:
 
 
 def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
-                     qn_sigma: float = 0.0) -> KKTFactor:
+                     qn_sigma: float = 0.0, csr_mat=None) -> KKTFactor:
     """Build all per-iteration factorizations.  ``qn_compact``: (b0, Z, M)
     from `qn_compact()`, (diag, None, None) for a diagonal Hessian, or None
-    for B = I."""
+    for B = I.  ``csr_mat``: the `HostCSRFactor` of the general-CSR path,
+    factored here with ``.factor(Dinv, C0)``."""
     dtype = v.x.dtype
     dev = v.x.device
     ql, qu = _bound_quotients(v, d)
@@ -338,7 +395,11 @@ def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     Gamma = v.s / v.zs + v.t / v.zt if ncon > 0 else zeros(0)
 
-    if d.nwcon > 0:
+    if d.nwcon > 0 and csr_mat is not None:
+        C0 = v.sw / v.zsw + v.tw / v.ztw
+        csr_mat.factor(Dinv, C0)
+        Cw_chol = None
+    elif d.nwcon > 0:
         C0 = v.sw / v.zsw + v.tw / v.ztw
         nb = d.nwblock
         eye = torch.eye(nb, dtype=dtype, device=dev)
@@ -351,13 +412,14 @@ def setup_kkt_factor(v: IPVars, d: ProblemData, qn_compact=None,
         Cw_chol = None
 
     if (d.nwcon > 0 and d.Aw_layout == "blocked_t" and d.nwblock == 1
-            and Zqn is not None and Zqn.shape[0] > 0
+            and csr_mat is None and Zqn is not None and Zqn.shape[0] > 0
             and Zqn.dtype == dtype):
         return _setup_factor_fused(v, d, Dinv, Gamma, C0, Cw_chol, Zqn, Mqn)
 
     f0 = KKTFactor(Dinv=Dinv, Gamma=Gamma, C0=C0, Cw_chol=Cw_chol,
                    Xa=zeros(ncon, d.n), Wa=None, G_lu=None, Zqn=None,
-                   Phi_x=None, Phi_z=None, Phi_w=None, Ce_inv=None)
+                   Phi_x=None, Phi_z=None, Phi_w=None, Ce_inv=None,
+                   csr_solver=csr_mat)
     if ncon > 0:
         Xa, Wa = quasi_def_solve(f0, d, d.A, zeros(ncon, d.nwcon))
         Gmat = torch.diag(Gamma) + d.A @ Xa.T

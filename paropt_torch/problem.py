@@ -12,8 +12,9 @@ either with differentiable ``objective(x)`` / ``constraints(x)`` /
 ``torch.func`` (``grad`` for g, ``jacrev`` for the [ncon, n] matrix A,
 ``jvp``/``vjp`` for the products), or by overriding the ``eval_*`` methods.
 ``check_gradients`` verifies a problem's derivatives by finite differences
-(or the complex step).  The general-CSR problem (``CSRSparseProblem``) is
-not ported yet.
+(or the complex step).  ``CSRSparseProblem`` states a general-CSR sparse
+Jacobian pattern once and fills its values per point; its quasi-definite
+factor is the native host sparse Cholesky (`ops.sparse_native`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .dtypes import resolve_device
 
 __all__ = ["Problem", "SparseJacobian", "check_gradients",
            "CSRSparseProblem"]
@@ -33,23 +36,28 @@ class SparseJacobian:
     Each of the ``nwcon`` rows has exactly ``k`` nonzeros, ``cols[i, j]``
     indexing into x with value ``vals[i, j]``.  ``layout`` classifies the
     pattern (`ops.kkt.detect_aw_layout`): for the partition patterns
-    ('blocked', 'blocked_t') every product is a reshape."""
+    ('blocked', 'blocked_t') every product is a reshape.  A caller that
+    knows the layout passes it with ``cols`` as an int64 tensor on the
+    values' device, which is then used as it is."""
 
     def __init__(self, nvars: int, cols, vals: torch.Tensor,
-                 nwblock: int = 1):
+                 nwblock: int = 1, layout: Optional[str] = None):
         from .ops.kkt import detect_aw_layout
-        cols_np = np.asarray(cols)
-        if cols_np.ndim != 2:
+        if layout is None:
+            cols_np = np.asarray(cols)
+            layout = detect_aw_layout(cols_np, nvars)
+            cols = torch.as_tensor(cols_np, dtype=torch.long,
+                                   device=vals.device)
+        if cols.dim() != 2:
             raise ValueError("cols must be [nwcon, k]")
         self.nvars = int(nvars)
-        self.nwcon, self.k = (int(s) for s in cols_np.shape)
+        self.nwcon, self.k = (int(s) for s in cols.shape)
         self.nwblock = int(nwblock)
         if self.nwcon % max(self.nwblock, 1):
             raise ValueError("nwcon must be a multiple of nwblock")
         self.vals = vals
-        self.cols = torch.as_tensor(cols_np, dtype=torch.long,
-                                    device=vals.device)
-        self.layout = detect_aw_layout(cols_np, self.nvars)
+        self.cols = cols
+        self.layout = layout
 
     def matvec(self, px: torch.Tensor) -> torch.Tensor:
         """Aw @ px -> [nwcon]."""
@@ -300,23 +308,27 @@ def check_gradients(problem: Problem, dh: Optional[float] = None, x=None,
         rhs = torch.dot(problem.sparse_jacobian_tvec(x, zw), px)
         out["sparse_adjoint"] = rel(abs(lhs - rhs), lhs)
 
-        # block inner product: e_i^T (Aw C Aw^T) e_j against the products
-        cvec = torch.as_tensor(key.uniform(size=problem.nvars) + 0.5,
-                               dtype=x.dtype, device=dev)
-        blocks = problem.sparse_inner_product(x, cvec)
-        nb = problem.nwblock
-        errs = []
-        for i in range(min(problem.nwcon, 4 * nb)):
-            ei = torch.zeros(problem.nwcon, dtype=x.dtype, device=dev)
-            ei[i] = 1.0
-            row = problem.sparse_jacobian_vec(
-                x, cvec * problem.sparse_jacobian_tvec(x, ei))
-            b = i // nb
-            approx = torch.zeros(problem.nwcon, dtype=x.dtype, device=dev)
-            approx[b * nb:(b + 1) * nb] = blocks[b][:, i % nb]
-            errs.append(float(torch.max(torch.abs(row - approx))))
-        out["sparse_inner_product"] = max(errs) / max(
-            float(torch.max(torch.abs(blocks))), 1e-30)
+        # block inner product: e_i^T (Aw C Aw^T) e_j against the products.
+        # Only the block path has one: a general-CSR problem's rows may
+        # overlap, and its Aw D Aw^T goes through the sparse factor instead
+        if not getattr(problem, "use_csr_path", False):
+            cvec = torch.as_tensor(key.uniform(size=problem.nvars) + 0.5,
+                                   dtype=x.dtype, device=dev)
+            blocks = problem.sparse_inner_product(x, cvec)
+            nb = problem.nwblock
+            errs = []
+            for i in range(min(problem.nwcon, 4 * nb)):
+                ei = torch.zeros(problem.nwcon, dtype=x.dtype, device=dev)
+                ei[i] = 1.0
+                row = problem.sparse_jacobian_vec(
+                    x, cvec * problem.sparse_jacobian_tvec(x, ei))
+                b = i // nb
+                approx = torch.zeros(problem.nwcon, dtype=x.dtype,
+                                     device=dev)
+                approx[b * nb:(b + 1) * nb] = blocks[b][:, i % nb]
+                errs.append(float(torch.max(torch.abs(row - approx))))
+            out["sparse_inner_product"] = max(errs) / max(
+                float(torch.max(torch.abs(blocks))), 1e-30)
 
     if verbose:
         for k, v in out.items():
@@ -326,10 +338,125 @@ def check_gradients(problem: Problem, dh: Optional[float] = None, x=None,
 
 class CSRSparseProblem(Problem):
     """A problem with a general-CSR sparse constraint Jacobian (counterpart
-    of paropt_tpu/problem.py:387, whose quasi-definite factor is the native
-    sparse Cholesky).  Not ported yet: constructing one raises."""
+    of paropt_tpu/problem.py:387, ``ParOptSparseProblem``'s role): the
+    pattern (``rowp``, ``cols``) is given once, and
+    ``eval_sparse_jacobian_data(x)`` returns the values in pattern order, a
+    device tensor or a host array.  Aw·D·Awᵀ need not be block diagonal:
+    the quasi-definite factor is the native host sparse Cholesky
+    (`create_quasi_def_mat`).
 
-    def __init__(self, *args, **kwargs):
+    The padded [nwcon, kmax] columns and their mask live on ``device``
+    (None: the card), and the products use them; the latest values are
+    kept on the host in float64 (``_data``), where the factor reads them.
+    ``syncs`` counts the problem's reads to the host (a fill's values) and
+    the bytes moved each way."""
+
+    def __init__(self, nvars: int, ncon: int, rowp, cols,
+                 ninequality: Optional[int] = None,
+                 nwinequality: Optional[int] = None, device=None):
+        from .ip import HostSyncs
+        from .ops.kkt import detect_aw_layout
+        rowp = np.asarray(rowp, dtype=np.int32)
+        cols = np.asarray(cols, dtype=np.int32)
+        nwcon = rowp.shape[0] - 1
+        super().__init__(nvars=nvars, ncon=ncon, nwcon=nwcon, nwblock=1,
+                         ninequality=ninequality, nwinequality=nwinequality)
+        self.csr_rowp, self.csr_cols = rowp, cols
+        self.use_csr_path = True
+        self.syncs = HostSyncs()
+        self._device = resolve_device(device)
+        counts = np.diff(rowp)
+        self._kmax = int(counts.max()) if nwcon else 0
+        # entry p of the pattern sits at [row, slot] of the padded form
+        mask = np.arange(self._kmax)[None, :] < counts[:, None]
+        pad_cols = np.zeros((nwcon, self._kmax), dtype=np.int64)
+        pad_cols[mask] = cols
+        self._pad_layout = detect_aw_layout(pad_cols, nvars)
+        self._pad_mask = torch.as_tensor(mask, device=self._device)
+        self._pad_cols = torch.as_tensor(pad_cols, device=self._device)
+        self._data = np.zeros(rowp[-1])
+
+    # -- user surface --------------------------------------------------------
+    def eval_sparse_jacobian_data(self, x):
+        """The CSR values of Aw(x), aligned with the pattern."""
         raise NotImplementedError(
-            "CSRSparseProblem (the general-CSR path and its native sparse "
-            "factor) is not ported yet (ROADMAP queue 1 item 11)")
+            "override eval_sparse_jacobian_data(x) for CSRSparseProblem")
+
+    def colored_jacobian_fill(self, fn=None):
+        """An ``x -> CSR values`` filler by colored forward-mode
+        differentiation of ``fn`` (default ``self.sparse_constraints``).
+
+        The columns are colored greedily, exactly as the JAX package does,
+        so that no row touches two columns of one color; one
+        ``torch.func.jvp`` per color, all under ``torch.func.vmap`` on the
+        device, then yields every entry (a banded collocation Jacobian
+        needs ~9-13 colors whatever its length)."""
+        fn = fn if fn is not None else self.sparse_constraints
+        rowp, cols = self.csr_rowp, self.csr_cols
+        col_rows = [[] for _ in range(self.nvars)]
+        for r in range(self.nwcon):
+            for k in range(rowp[r], rowp[r + 1]):
+                col_rows[cols[k]].append(r)
+        row_used = [set() for _ in range(self.nwcon)]
+        color = np.full(self.nvars, -1, dtype=np.int64)
+        for c in range(self.nvars):
+            if not col_rows[c]:
+                color[c] = 0
+                continue
+            forbidden = set()
+            for r in col_rows[c]:
+                forbidden |= row_used[r]
+            col = 0
+            while col in forbidden:
+                col += 1
+            color[c] = col
+            for r in col_rows[c]:
+                row_used[r].add(col)
+        ncolors = int(color.max()) + 1
+        seeds = np.zeros((ncolors, self.nvars))
+        seeds[color, np.arange(self.nvars)] = 1.0
+        dev = self._device
+        seeds_t = torch.as_tensor(seeds, device=dev)
+        rows_idx = torch.as_tensor(np.repeat(np.arange(self.nwcon),
+                                             np.diff(rowp)), device=dev)
+        entry_colors = torch.as_tensor(color[cols], device=dev)
+
+        def fill(x):
+            s = seeds_t.to(x.dtype)
+            jcols = torch.func.vmap(
+                lambda si: torch.func.jvp(fn, (x,), (si,))[1])(s)
+            return jcols[entry_colors, rows_idx]   # [nnz]
+
+        return fill
+
+    def set_sparse_jacobian_data(self, data) -> None:
+        """Keep the values on the host in float64 (one read of a device
+        tensor)."""
+        if isinstance(data, torch.Tensor):
+            data = self.syncs.array(data)
+        self._data = np.asarray(data, dtype=np.float64)
+
+    # -- generic implementations --------------------------------------------
+    def _padded_vals(self, data) -> torch.Tensor:
+        """[nwcon, kmax] float64 values on the device, zero-padded."""
+        if isinstance(data, torch.Tensor):
+            flat = data.to(device=self._device, dtype=torch.float64)
+        else:
+            flat = self.syncs.upload(np.asarray(data, np.float64),
+                                     self._device)
+        vals = torch.zeros((self.nwcon, self._kmax), dtype=torch.float64,
+                           device=self._device)
+        return vals.masked_scatter(self._pad_mask, flat)
+
+    def sparse_jacobian(self, x) -> SparseJacobian:
+        data = self.eval_sparse_jacobian_data(x)
+        self.set_sparse_jacobian_data(data)
+        return SparseJacobian(self.nvars, self._pad_cols,
+                              self._padded_vals(data), nwblock=1,
+                              layout=self._pad_layout)
+
+    def create_quasi_def_mat(self):
+        """The native general-CSR quasi-definite factor
+        (``createQuasiDefMat``)."""
+        from .ops.sparse_native import CSRQuasiDefMat
+        return CSRQuasiDefMat(self.nvars, self.csr_rowp, self.csr_cols)

@@ -19,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_torch import Optimizer, convert, dtypes, eig, ip, ip_fused
+from paropt_torch import (Optimizer, convert, dtypes, eig, ip, ip_fused,
+                          problem)
 from paropt_torch.eig_fused import FusedEigenTR
-from paropt_torch.models import (analytic, fem_frequency, fem_topology,
-                                 fem_topology3d, topology)
+from paropt_torch.models import (analytic, brachistochrone, cartpole, cops,
+                                 fem_frequency, fem_topology, fem_topology3d,
+                                 ssto, topology, truss)
 from paropt_torch.ops import kkt, qn
 from paropt_torch.tr import TrustRegion
 
@@ -61,6 +63,15 @@ CONSTRUCTORS = {
     "RandomQuadratic": (analytic,
                         lambda: analytic.RandomQuadratic(eigs=[1.0, 2.0])),
     "Toy": (analytic, analytic.Toy),
+    "Electron": (cops, lambda: cops.Electron(4)),
+    "ElectronCSR": (problem, lambda: cops.ElectronCSR(4)),
+    "Polygon": (cops, lambda: cops.Polygon(4)),
+    "BrachistochroneCollocation": (
+        problem, lambda: brachistochrone.BrachistochroneCollocation(6)),
+    "SSTOCollocation": (problem, lambda: ssto.SSTOCollocation(6)),
+    "TrussSizing": (truss, truss.TrussSizing),
+    "DMOTruss": (truss, lambda: truss.DMOTruss(3, 2)),
+    "CartPole": (cartpole, lambda: cartpole.CartPole(nsteps=4)),
     "qn_init": (qn, lambda: qn.qn_init(2, 8)),
     "zero_vars": (kkt, lambda: kkt.zero_vars(8, 1, 2)),
     "convert.to_tensor": (convert, lambda: convert.to_tensor(np.zeros(3))),
@@ -284,3 +295,68 @@ def test_eigen_route_without_device_aims_at_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             run()
+
+
+# the general-CSR, callback and trajectory models on the CPU (small sizes)
+NEW_MODELS = {
+    "ElectronCSR": lambda: cops.ElectronCSR(4, dtype=torch.float64,
+                                            device="cpu"),
+    "Electron": lambda: cops.Electron(4, dtype=torch.float64, device="cpu"),
+    "Polygon": lambda: cops.Polygon(4, dtype=torch.float64, device="cpu"),
+    "BrachistochroneCollocation": lambda: (
+        brachistochrone.BrachistochroneCollocation(6, dtype=torch.float64,
+                                                   device="cpu")),
+    "SSTOCollocation": lambda: ssto.SSTOCollocation(6, dtype=torch.float64,
+                                                    device="cpu"),
+    "TrussSizing": lambda: truss.TrussSizing(dtype=torch.float64,
+                                             device="cpu"),
+    "DMOTruss": lambda: truss.DMOTruss(3, 2, dtype=torch.float64,
+                                       device="cpu"),
+    "CartPole": lambda: cartpole.CartPole(nsteps=4, dtype=torch.float64,
+                                          device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_MODELS))
+def test_new_models_stay_on_the_device_and_turn_tf32_off(name):
+    """Each model built on the CPU under a meta default device makes every
+    tensor on the CPU, turns TF32 off, and one host IP iteration (for the
+    CSR models: the host factor's reads and the fill's transfers) stays
+    there too."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    prob = _on_meta_default(NEW_MODELS[name])
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    x0, lb, ub = _on_meta_default(prob.get_vars_and_bounds)
+    assert all(t.device.type == "cpu" for t in (x0, lb, ub))
+    f, c = _on_meta_default(lambda: prob.eval_obj_con(x0))
+    assert f.device.type == "cpu" and torch.isfinite(f)
+    if getattr(prob, "use_csr_path", False):
+        aw = _on_meta_default(lambda: prob.sparse_jacobian(x0))
+        assert aw.vals.device.type == "cpu" and aw.cols.device.type == "cpu"
+    solver = ip.InteriorPoint(prob, {"output_file": None,
+                                     "max_major_iters": 1})
+    res = _on_meta_default(solver.optimize)
+    assert res["x"].device.type == "cpu"
+
+
+def test_csr_problem_stays_on_the_device():
+    """The bare CSRSparseProblem keeps its padded pattern, its mask and its
+    colored fill on the device it was given, under a meta default
+    device."""
+    def make():
+        prob = problem.CSRSparseProblem(4, 0, [0, 2, 4], [0, 1, 1, 3],
+                                        device="cpu")
+        fill = prob.colored_jacobian_fill(lambda x: torch.stack(
+            [x[0] * x[1], x[1] + x[3] ** 2]))
+        return prob, fill(torch.arange(4.0, dtype=torch.float64,
+                                       device="cpu"))
+
+    prob, data = _on_meta_default(make)
+    assert prob._pad_cols.device.type == prob._pad_mask.device.type == "cpu"
+    assert data.device.type == "cpu"
+    assert data.tolist() == [1.0, 0.0, 1.0, 6.0]
+    aw = _on_meta_default(lambda: problem.SparseJacobian(
+        4, prob._pad_cols, prob._padded_vals(data), layout=prob._pad_layout))
+    assert aw.vals.device.type == "cpu"

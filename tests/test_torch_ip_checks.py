@@ -15,7 +15,8 @@ float64.
 - One iteration of each package from the same mid-solve JAX state loaded
   through `convert.load_interior_point`.
 - Each piece not ported yet raises NotImplementedError naming its ROADMAP
-  item.
+  item; the general-CSR and callback paths (item 11) raise only where
+  the JAX package does.
 """
 
 import dataclasses
@@ -266,21 +267,33 @@ def test_checkpoints_raise():
 
 
 def test_general_csr_path_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CSRSparseProblem(4, 1, [0, 2], [0, 1])
-    prob = _small()
-    prob.use_csr_path = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tip.InteriorPoint(prob, {"output_file": None})
+    """The general-CSR path is ported (tests/test_torch_csr.py holds it
+    against paropt_tpu): a CSR problem that does not fill its Jacobian
+    values raises NotImplementedError naming the method to override, and a
+    pattern without values does not factor."""
+    prob = CSRSparseProblem(4, 0, [0, 2], [0, 1], device="cpu")
+    assert prob.use_csr_path and prob.nwcon == 1
+    with pytest.raises(NotImplementedError,
+                       match="eval_sparse_jacobian_data"):
+        prob.sparse_jacobian(torch.zeros(4, dtype=F64))
+    mat = prob.create_quasi_def_mat()
+    assert mat.get_factor_info() == "unfactored"
+    with pytest.raises(RuntimeError, match="not positive definite"):
+        mat.factor(np.ones(4), np.zeros(1))
 
 
 def test_callback_sparse_path_raises():
-    """Sparse constraints without a structured Jacobian would take the
-    callback-product path."""
+    """Sparse constraints without a structured Jacobian take the
+    callback-product path; a sparse_jacobian that raises anything else
+    propagates."""
     prob = _small()
     prob.sparse_jacobian = lambda x: (_ for _ in ()).throw(
         NotImplementedError("no structured Jacobian"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    ip = tip.InteriorPoint(prob, {"output_file": None})
+    assert ip._callback_sparse and ip._eager and ip._csr_mat is None
+    prob.sparse_jacobian = lambda x: (_ for _ in ()).throw(
+        ValueError("bug in user Jacobian"))
+    with pytest.raises(ValueError, match="bug in user Jacobian"):
         tip.InteriorPoint(prob, {"output_file": None})
 
 

@@ -407,3 +407,46 @@ def test_cuda_batched_solves_launch_the_instance_axis_and_match_host(cuda):
     assert kc == kh and list(tnc) == list(tnh)
     np.testing.assert_allclose(fc, fh, rtol=1e-9)
     np.testing.assert_allclose(tfc, tfh, rtol=1e-9)
+
+
+DYMOS = {"norm_type": "infinity", "qn_subspace_size": 10,
+         "starting_point_strategy": "least_squares_multipliers",
+         "qn_update_type": "damped_update", "abs_res_tol": 1e-6,
+         "barrier_strategy": "monotone", "armijo_constant": 1e-5,
+         "penalty_gamma": 100.0, "max_major_iters": 500}
+
+
+@pytest.mark.parametrize("model", ["electron_csr", "brachistochrone"])
+def test_cuda_csr_path_matches_the_cpu(cuda, model):
+    """The general-CSR path in float64 through the host InteriorPoint on
+    the card and on the CPU: equal counts, fobj within 1e-9 relative, no
+    quasi-definite kernel on the card; the native library is built from
+    src_native/ into build/paropt_torch_sparse/."""
+    from paropt_torch import InteriorPoint
+    from paropt_torch.models import BrachistochroneCollocation, ElectronCSR
+    from paropt_torch.ops import sparse_native
+
+    def run(device):
+        if model == "electron_csr":
+            prob = ElectronCSR(20, dtype=torch.float64, device=device)
+            opts = {"abs_res_tol": 1e-6}
+        else:
+            prob = BrachistochroneCollocation(24, dtype=torch.float64,
+                                              device=device)
+            opts = DYMOS
+        kernels.reset_launches()
+        ip = InteriorPoint(prob, dict(opts, output_file=None))
+        res = ip.optimize()
+        return res, dict(kernels.LAUNCHES), ip
+
+    rc, launches, ip = run(cuda)
+    rh, _, _ = run("cpu")
+    assert rc["converged"] and rc["x"].is_cuda
+    assert (rc["niter"], rc["neval"], rc["ngeval"]) == (
+        rh["niter"], rh["neval"], rh["ngeval"])
+    assert abs(rc["fobj"] - rh["fobj"]) <= 1e-9 * abs(rh["fobj"])
+    assert launches["qn_roll_update"] > 0
+    assert launches["quasi_def_apply"] == launches["phi_gram"] == 0
+    assert ip.syncs.bytes_to_host > 0 and ip.syncs.bytes_to_device > 0
+    lib = sparse_native.build_library()
+    assert lib.parts[-4:-2] == ("build", "paropt_torch_sparse")
