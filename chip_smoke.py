@@ -53,7 +53,9 @@ Phases (any failure raises and exits nonzero without the final line):
    reach 1e-5 here), with the float32 compliance's error against float64;
 7. the bench configuration: FusedMMA on FEMTopology(96, 48, cg_iters=25,
    solver="mgcg"), float32, 60 outer iterations; fobj must fall in
-   bench.py's band (0.10, 0.18) with infeasibility < 1e-8;
+   bench.py's band (0.10, 0.18) with infeasibility < 1e-8.  The run
+   writes its full state every 10 outer iterations (checkpoint_path) and
+   keeps each file, for phase 34;
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
    cg_iters 25) for 10 outer iterations and on DMOFEMTopology(12, 6,
    cg_iters 120) for 8 (cut from 20 and 15), once with CUDA tensors and
@@ -170,7 +172,7 @@ call with its instance axis):
    time both ways and their ratio (recorded, not claimed); the same
    convergence flags and fobj within 1e-5;
 23. batched MMA at full width: FEMTopology(768, 384, mgcg), k = 4 starts
-   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 10 outer
+   clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32, 6 outer
    iterations (a depth cut): infeasibility < 1e-6 for every instance, no
    kernel launched, instance 1 printed beside its single solve and the
    float32 floor.  float64, 3 outer iterations: instance 1 equal to its
@@ -179,9 +181,10 @@ call with its instance axis):
    converged, all three kernels launched, every launch with the instance
    axis, instance 2 equal to its single solve in niter and fobj within
    1e-5), and bench.py's FEM 48x24 as examples/fem_topology_tr.py runs it
-   (only qn_roll_update): float32, 6 outer iterations, instance 2 printed
-   beside its single solve and the float32 floor; float64, 4 outer
-   iterations, instance 2 equal to its single solve (fobj within 1e-5);
+   (only qn_roll_update): float32, 4 outer iterations (cut from 6),
+   instance 2 printed beside its single solve and the float32 floor;
+   float64, 3 outer iterations (cut from 4), instance 2 equal to its
+   single solve (fobj within 1e-5);
 25. card against host in float64: the three batched solves at the CPU
    tests' sizes (SyntheticTopology(256); FEM 8x4), depths cut (the IP to
    60 steps, the MMA and TR to 6 and 4 outer iterations), on the card and
@@ -257,12 +260,70 @@ with the trajectory, COPS and truss models; each prints its wall seconds:
    ElectronCSR(20), Electron(20), Polygon(6), SSTOCollocation(40),
    BrachistochroneCollocation(48), the callback-only SparseRosenbrock,
    TrussSizing, DMOTruss(4, 3) (40 iterations, a depth cut) and
-   CartPole(nsteps=12): equal iteration, evaluation and gradient counts,
+   CartPole(nsteps=12) (20 of its 47 iterations, a depth cut): equal
+   iteration, evaluation and gradient counts,
    fobj within 1e-9 relative (plus 1e-14 absolute: the Rosenbrock ends at
    fobj ~ 1e-16, roundoff); DMOTruss's launches are printed.
 
 The kernels line also carries each kernel's launches in phases 29 and 30
 (csr_launches, electron_launches, ssto_launches).
+
+Phases 32-35 run the batched eigen-TR solves, checkpoints and the
+reference's user surface; each prints its wall seconds:
+
+32. batched eigen TR at full width: phase 26's FrequencyTopology3D(64, 32,
+   32, N=6, cg_iters=30, mgcg, lobpcg_iters=60) in float32 through
+   build_fused_tr with phase 26's options and tr_max_iterations 3 (phase
+   26's depth, cut from the flagship's 40; at 2 the x0 instance has had
+   both trials rejected and still sits at its start), then solve_batched
+   on kb = 4 starts
+   (x0 = 1 and three from _starts inside the bounds).  It prints per
+   instance the outer and inner iterations, fobj, infeasibility and LOBPCG
+   block iterations per eigensolve, and for the batch the seconds per
+   batched outer iteration beside phase 26's single one, host reads per
+   outer iteration, the instance-axis launches and peak memory.  Checks:
+   every iterate finite, each fobj below 1, one instance-axis
+   qn_roll_update per outer iteration and no single-launch roll, no
+   quasi-definite kernel;
+33. per-instance holds in float64: solve_batched with kb = 3 on phase 28's
+   FrequencyTopology(8, 4, N=3, mgcg) and FrequencyTopology3D(4, 3, 2,
+   N=3, Jacobi CG 120), 4 outer iterations: each instance equal to its own
+   single solve on the card (outer and inner iterations, LOBPCG block
+   iterations per eigensolve, fobj within 1e-9 relative; x0's single
+   solve is phase 28's card run), and the card's batch equal to the CPU's
+   by the same measures (the CPU's batches run in a child process started
+   before phase 26, beside the card's phases);
+34. checkpoints at full width: (a) fused_ip_optimize on
+   SyntheticTopology(2^20) in float32 with phase 4's settings,
+   write_output_frequency 10 and ip_checkpoint_file must end as phase 4
+   does (iterations, fobj and x bit for bit); the iteration-10 file,
+   restored with restore_state and resumed, must end the same way; the
+   file's size and write time are printed; (b) phase 13's host
+   InteriorPoint with optimize(checkpoint=...): the file read back by
+   read_solution_file equals the state written bit for bit and the
+   resumed solve converges; (c) phase 7's FusedMMA run on FEMTopology(96,
+   48) wrote its state with checkpoint_path at cadence 10: its
+   iteration-30 file, resumed for 30 more outer iterations, must end on
+   phase 7's 60-iteration fobj and x bit for bit;
+35. the reference's surface at full width in float64 on the card: (a) a
+   compat.Problem written here with numpy fill callbacks (the objective,
+   the volume constraint and the n/8 block constraints of
+   SyntheticTopology(2^20), nwblock = 1) through compat.InteriorPoint
+   with phase 4's settings against InteriorPoint(SyntheticTopology(2^20)):
+   the same iterations, fobj within 1e-9 relative and x within 1e-7, with
+   seconds, host reads and bytes each way per iteration and each route's
+   launches; (b) a FunctionProblem of the same objective and volume
+   constraint against a native problem of the two: the same iterations,
+   fobj within 1e-9; (c) ReducedProblem(FEMTopology(768, 384, mgcg)) with
+   the 8x8 elements around the load fixed at 1.0: the reduced gradient
+   equals the full gradient's free entries (1e-12 relative) and 5 host
+   MMA outer iterations in float64 lower fobj and leave the fixed entries
+   exactly 1.0.
+
+The kernels line also carries each kernel's launches in phases 32
+(eig_batched_launches), 33 (eig_batched_f64_launches, the card's batched
+solves), 34 (ckpt_ip_launches, ckpt_host_ip_launches) and 35
+(compat_launches, compat_native_launches, function_launches).
 Only torch and numpy are used.
 """
 
@@ -611,7 +672,9 @@ def _build_solver(torch, n, dtype, device, **extra):
 
 
 def phase_slice(torch):
-    """The main path at n = 2^20 in float32; returns the launch counts."""
+    """The main path at n = 2^20 in float32; returns the launch counts, the
+    iterations, fobj and x (phase 34 holds its checkpointed solve to
+    them)."""
     from paropt_torch.ops import kernels
     fused, data, x0, qn0 = _build_solver(torch, N_MAIN, torch.float32,
                                          "cuda")
@@ -644,7 +707,7 @@ def phase_slice(torch):
           and torch.isfinite(state.vars.x).all().item(), "bad final x")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the solve")
-    return launches, iters
+    return launches, iters, fobj, state.vars.x
 
 
 def phase_crosscheck(torch):
@@ -823,22 +886,46 @@ def phase_mma_full(torch, dtype, nex=768, ney=384, iters=20):
 
 
 def phase_mma_bench(torch):
-    """bench.py's MMA configuration as a correctness check."""
+    """bench.py's MMA configuration as a correctness check.  The run also
+    writes its full state every 10 outer iterations (``checkpoint_path``)
+    and keeps each file as the next is written; returns fobj and x after
+    the 60 outer iterations and the kept files by iteration (phase 34
+    resumes the iteration-30 one to them)."""
+    import shutil
+
     from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.mma import FusedMMA
     prob = FEMTopology(96, 48, cg_iters=25, solver="mgcg",
                        dtype=torch.float32, device="cuda")
-    solver = _mma_solver(torch, prob, 60, "float32")
+    BUILD.mkdir(exist_ok=True)
+    path = BUILD / "chip_smoke_mma.pt"
+    kept, last = {}, []
+
+    def keep(it, x):
+        # the file still holds the previous cadence's state
+        if last:
+            kept[last[-1]] = BUILD / f"chip_smoke_mma_{last[-1]}.pt"
+            shutil.copy(path, kept[last[-1]])
+        last.append(it)
+
+    prob.write_output = keep
+    solver = FusedMMA(prob, {"mma_max_iterations": 60,
+                             "mma_output_file": None, "dtype": "float32",
+                             "write_output_frequency": 10})
     t0 = time.perf_counter()
-    res, state = solver.solve()
+    res, state = solver.solve(checkpoint_path=str(path))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     log(f"[mma 96x48 float32] outer iterations {res['niter']}, inner "
         f"{int(state.subiters)}, fobj {res['fobj']:.6f}, infeas "
         f"{res['infeas']:.3e}, l1 {res['l1']:.4e}; {wall:.2f} s = "
-        f"{wall / max(res['niter'], 1):.4f} s per outer iteration")
+        f"{wall / max(res['niter'], 1):.4f} s per outer iteration "
+        f"(checkpoints kept of iterations {sorted(kept)})")
     check(0.10 < res["fobj"] < 0.18,
           f"fobj {res['fobj']:.4f} outside bench.py's band (0.10, 0.18)")
     check(res["infeas"] < 1e-8, f"infeas {res['infeas']:.3e} >= 1e-8")
+    path.unlink(missing_ok=True)
+    return res["fobj"], state.x, kept
 
 
 def phase_mma_crosscheck(torch):
@@ -1959,12 +2046,13 @@ def _f32_floor(tag, res, r1, moved, i):
 def phase_batched_mma(torch):
     """Batched FusedMMA at full width: k = 4 starts on FEMTopology(768,
     384, mgcg), clipped to [0.05, 0.95] from uniform(0.6, 1.4).  float32,
-    10 outer iterations (a depth cut): infeasibility < 1e-6 for every
+    6 outer iterations (a depth cut): infeasibility < 1e-6 for every
     instance, no kernel launched, instance 1 printed beside its single
     solve and float32's roundoff floor.  float64, 3 outer iterations:
     instance 1 equals its single solve (niter, fobj within 1e-5)."""
     from paropt_torch.models.fem_topology import FEMTopology
-    for dtype, iters in ((torch.float32, 10), (torch.float64, 3)):
+    # float32 at 6 outer iterations (a depth cut from 20)
+    for dtype, iters in ((torch.float32, 6), (torch.float64, 3)):
         name = str(dtype).split(".")[1]
         tag = f"[batched mma k={KB} 768x384 {name}]"
         prob = FEMTopology(768, 384, cg_iters=25, solver="mgcg",
@@ -1993,9 +2081,9 @@ def phase_batched_tr(torch):
     float32: every instance converged, all three kernels launched, each
     with the instance axis, instance 2 equal to its single solve in niter
     and fobj within 1e-5), and bench.py's FEM 48x24 as
-    examples/fem_topology_tr.py runs it (float32, 6 outer iterations:
+    examples/fem_topology_tr.py runs it (float32, 4 outer iterations:
     only qn_roll_update, instance 2 printed beside its single solve and
-    float32's roundoff floor; float64, 4 outer iterations: instance 2
+    float32's roundoff floor; float64, 3 outer iterations: instance 2
     equal to its single solve, fobj within 1e-5).  Returns the n = 2^20
     batch's launches."""
     from paropt_torch.models.fem_topology import FEMTopology
@@ -2013,7 +2101,8 @@ def phase_batched_tr(torch):
     for k, count in out.items():
         check(count > 0, f"kernel {k} was not launched")
     _held(tag, res, r2, 2, 1e-5)
-    for dtype, iters in ((torch.float32, 6), (torch.float64, 4)):
+    # 4 and 3 outer iterations (a depth cut, from 6 and 4)
+    for dtype, iters in ((torch.float32, 4), (torch.float64, 3)):
         name = str(dtype).split(".")[1]
         tag = f"[batched tr k={KB} fem 48x24 {name}]"
         prob = FEMTopology(48, 24, cg_iters=25, solver="mgcg", dtype=dtype,
@@ -2129,7 +2218,7 @@ def phase_eig3d_full(torch):
     """Phase 26: FusedEigenTR on the JAX package's 3-D eigen flagship in
     float32, EIG3D_ITERS outer iterations, each one call of
     ``solve(state0=...)`` resuming the last; returns the kernel launches of
-    those iterations."""
+    those iterations and the seconds per outer iteration."""
     from paropt_torch.models.fem_frequency import FrequencyTopology3D
     from paropt_torch.ops import kernels
     tag = "[eig3d {}x{}x{} N=6 float32]".format(*EIG3D_MESH)
@@ -2211,7 +2300,7 @@ def phase_eig3d_full(torch):
                          float(solver._state0.gamma[0]), solver._to.eta,
                          float(rhos[0]))
     log(f"{tag} phase 26 took {time.perf_counter() - t_phase:.2f} s")
-    return launches
+    return launches, wall / EIG3D_ITERS
 
 
 def _ks(lam, lam_t, ks_rho):
@@ -2329,7 +2418,8 @@ def phase_eig_crosscheck(torch):
     """Phase 28: the eigen path in float64, card against host: FusedEigenTR
     on FrequencyTopology(8, 4) and FrequencyTopology3D(4, 3, 2), and the
     host EigenSubproblem through `Optimizer.set_trust_region_subproblem`
-    on the 2-D problem."""
+    on the 2-D problem.  Returns each case's card result (fobj, counts):
+    phase 33 holds its batches' x0 instances to the fused ones."""
     from paropt_torch import Optimizer
     from paropt_torch.models.fem_frequency import (FrequencyTopology,
                                                    FrequencyTopology3D)
@@ -2370,6 +2460,7 @@ def phase_eig_crosscheck(torch):
     cases = (("FusedEigenTR 2-D 8x4", fused(freq2d, 4)),
              ("FusedEigenTR 3-D 4x3x2", fused(freq3d, 4)),
              ("host EigenSubproblem 2-D 8x4", host))
+    cards = {}
     for name, run in cases:
         out = {}
         for dev in ("cuda", "cpu"):
@@ -2382,8 +2473,10 @@ def phase_eig_crosscheck(torch):
         check(ic == ih, f"{name}: counts differ: cuda {ic}, cpu {ih}")
         check(abs(fc - fh) <= 1e-9 * abs(fh),
               f"{name}: objectives differ: cuda {fc!r}, cpu {fh!r}")
+        cards[name] = out["cuda"]
     log(f"[eig crosscheck] phase 28 took "
         f"{time.perf_counter() - t_phase:.2f} s")
+    return cards
 
 
 # --- the general-CSR path and the trajectory, COPS and truss models -------
@@ -2543,11 +2636,12 @@ def phase_csr_crosscheck(torch):
         ("DMOTruss(4, 3)", lambda d: DMOTruss(4, 3, device=d, **f64),
          {"abs_res_tol": 1e-5, "max_major_iters": 40}),
         # nsteps = 12 converges in 47 iterations (paropt_tpu and the port
-        # on the CPU); at 8 the solve wanders for thousands of iterations,
-        # and 100 bounds the cost if it ever does here
+        # on the CPU; at 8 the solve wanders for thousands of iterations);
+        # its first 20 (a depth cut: the 47 took 37 s on the card and 15 s
+        # on the CPU of an H100 machine)
         ("CartPole(nsteps=12)",
          lambda d: CartPole(nsteps=12, device=d, **f64),
-         dict(tol6, max_major_iters=100)),
+         dict(tol6, max_major_iters=20)),
     )
     dmo_launches = None
     for name, make, opts in cases:
@@ -2578,44 +2672,630 @@ def phase_csr_crosscheck(torch):
         f"{time.perf_counter() - t_phase:.2f} s")
 
 
+# --- batched eigen-TR solves, checkpoints and the reference's surface -----
+# (phases 32-35)
+
+# phase 32's depth, phase 26's (cut from the flagship's 40): at 2 the x0
+# instance, phase 26's trajectory, has had both its trials rejected and
+# still sits at fobj 1.0
+EIG3D_BATCH_ITERS = EIG3D_ITERS
+
+
+def _instance_lobpcg(log_, start, j):
+    """Instance j's LOBPCG block iterations in each batched eigensolve
+    recorded from ``start`` on."""
+    return [counts[j] for counts in log_[start:]]
+
+
+def phase_eig3d_batched(torch, single_s_per_iter):
+    """Phase 32: FusedEigenTR.solve_batched on phase 26's flagship in
+    float32 with KB starts; returns the batch's kernel launches."""
+    from paropt_torch.models.fem_frequency import FrequencyTopology3D
+    from paropt_torch.ops import kernels
+    tag = "[eig3d batched {}x{}x{} N=6 float32 kb={}]".format(*EIG3D_MESH,
+                                                               KB)
+    t_phase = time.perf_counter()
+    prob = FrequencyTopology3D(*EIG3D_MESH, N=6, cg_iters=30,
+                               solver="mgcg", lobpcg_iters=60,
+                               dtype=torch.float32, device="cuda")
+    solver = prob.build_fused_tr({"tr_max_iterations": EIG3D_BATCH_ITERS,
+                                  "dtype": "float32", "output_file": None,
+                                  "tr_output_file": None})
+    x0, _, _ = prob.get_vars_and_bounds()
+    x0s = torch.cat([x0[None], _starts(torch, x0, KB - 1, 0.6, 1.0,
+                                       clip=(prob.lb, 1.0), seed=1)])
+    torch.cuda.synchronize()
+    log(f"{tag} model and solver built in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    reads0, solves0 = solver.syncs.count, len(prob.lobpcg_iters_log)
+    t0 = time.perf_counter()
+    res, st = solver.solve_batched(x0s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reads = solver.syncs.count - reads0
+    niter = int(res["niter"].max())
+    for j in range(KB):
+        log(f"{tag} instance {j}: outer {int(res['niter'][j])}, inner "
+            f"{int(st.subiters[j])}, fobj {float(res['fobj'][j]):.6f}, "
+            f"infeas {float(res['infeas'][j]):.3e}; LOBPCG block "
+            f"iterations per eigensolve (start first) "
+            f"{_instance_lobpcg(prob.lobpcg_iters_log, solves0, j)}")
+    log(f"{tag} wall {wall:.3f} s (the batched start eigensolve included) "
+        f"= {wall / niter:.4f} s per batched outer iteration, phase 26's "
+        f"single one {single_s_per_iter:.4f} s; {reads} host reads = "
+        f"{reads / niter:.1f} per outer iteration; peak memory "
+        f"{peak:.3f} GiB; launches {launches}, of them instance-axis "
+        f"{batched}")
+    finite = (torch.isfinite(st.xk).all() & torch.isfinite(st.fk).all()
+              & torch.isfinite(st.rho).all())
+    check(bool(finite), "a non-finite batched iterate, fobj or rho")
+    check(niter == EIG3D_BATCH_ITERS, f"{niter} outer iterations")
+    check(bool((res["fobj"] < 1.0).all()),
+          f"fobj {res['fobj'].tolist()} not all below the start 1.0")
+    check(batched["qn_roll_update"] == niter
+          and launches["qn_roll_update"] == niter,
+          f"qn_roll_update: {launches['qn_roll_update']} launches, "
+          f"{batched['qn_roll_update']} with the instance axis, in {niter} "
+          f"batched outer iterations (one instance-axis roll each)")
+    check(launches["quasi_def_apply"] == launches["phi_gram"] == 0,
+          f"a quasi-definite kernel ran on the eigen path: {launches}")
+    log(f"{tag} phase 32 took {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+# phase 33's models: phase 28's (N = 3 in 3-D: at N = 4 this box's fourth
+# mode converges slowly, 39-52 block iterations, and the count is decided
+# by roundoff)
+EIG33_MODELS = ("FusedEigenTR 2-D 8x4", "FusedEigenTR 3-D 4x3x2")
+
+
+def _eig33_model(torch, name, dev):
+    from paropt_torch.models.fem_frequency import (FrequencyTopology,
+                                                   FrequencyTopology3D)
+    if name == EIG33_MODELS[0]:
+        return FrequencyTopology(8, 4, N=3, cg_iters=25, solver="mgcg",
+                                 lobpcg_iters=50, dtype=torch.float64,
+                                 device=dev)
+    return FrequencyTopology3D(4, 3, 2, N=3, cg_iters=120, solver="jacobi",
+                               dtype=torch.float64, device=dev)
+
+
+def _eig33_starts(torch, prob):
+    """x0 and two starts inside the bounds."""
+    x0, _, _ = prob.get_vars_and_bounds()
+    return torch.cat([x0[None], _starts(torch, x0, 2, 0.6, 1.0,
+                                        clip=(prob.lb, 1.0), seed=2)])
+
+
+EIG33_OPTS = dict(EIG_OPTS, dtype="float64", tr_max_iterations=4)
+
+
+def _eig33_batched(torch, name, dev):
+    """(fobj [3], per instance (outer, inner, LOBPCG block iterations from
+    the start's eigensolve), seconds, the model) of one batched solve."""
+    prob = _eig33_model(torch, name, dev)
+    solver = prob.build_fused_tr(dict(EIG33_OPTS))
+    start = len(prob.lobpcg_iters_log)
+    t0 = time.perf_counter()
+    res, st = solver.solve_batched(_eig33_starts(torch, prob))
+    counts = [[int(res["niter"][j]), int(st.subiters[j]),
+               _instance_lobpcg(prob.lobpcg_iters_log, start, j)]
+              for j in range(3)]
+    return res["fobj"].tolist(), counts, time.perf_counter() - t0, prob
+
+
+def _eig33_cpu_main():
+    """Phase 33's batched solves on the CPU, as a JSON line on stdout (run
+    in a process of its own, beside the card's phases)."""
+    import torch
+    torch.set_num_threads(2)
+    print(json.dumps({name: _eig33_batched(torch, name, "cpu")[:3]
+                      for name in EIG33_MODELS}), flush=True)
+
+
+def _eig33_cpu_start():
+    """Start `_eig33_cpu_main` in a child process; phase 33 reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke._eig33_cpu_main()"], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_eig_batched_crosscheck(torch, cpu_job, singles):
+    """Phase 33: solve_batched with kb = 3 in float64 on FrequencyTopology
+    (8, 4) and FrequencyTopology3D(4, 3, 2) (phase 28's models), 4 outer
+    iterations: each instance equal to its own single solve on the card
+    (x0's is phase 28's card solve, ``singles``), and the card's batch
+    equal to the CPU's (run by ``cpu_job``, started beside the card's
+    earlier phases).  Returns the kernel launches of the card's batched
+    solves."""
+    from paropt_torch.ops import kernels
+    t_phase = time.perf_counter()
+    out, err = cpu_job.communicate(timeout=900)
+    check(cpu_job.returncode == 0, f"the CPU batched solves failed:\n{err}")
+    cpu = json.loads(out.splitlines()[-1])
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name in EIG33_MODELS:
+        kernels.reset_launches()
+        fc, cc, secs, prob = _eig33_batched(torch, name, "cuda")
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+        fh, ch, secs_h = cpu[name]
+        for dev, f, c, t in (("cuda", fc, cc, secs), ("cpu", fh, ch, secs_h)):
+            log(f"[eig batched crosscheck] {name} {dev}: fobj {f}, (outer, "
+                f"inner, LOBPCG block iterations) {c} ({t:.2f} s)")
+        check(cc == ch, f"{name}: batched counts differ: cuda {cc}, cpu {ch}")
+        for j in range(3):
+            check(_rel(fc[j], fh[j]) <= 1e-9,
+                  f"{name} instance {j}: cuda {fc[j]!r}, cpu {fh[j]!r}")
+        # x0's single solve on the card is phase 28's; the others run on
+        # the card's model (its lam_target is every solver's), each
+        # solver's build evaluating its start
+        f0, (n0, i0, log0) = singles[name]
+        ones = [(f0, [n0, i0, log0[1:]])]
+        base = prob.get_vars_and_bounds
+        for x0j in _eig33_starts(torch, prob)[1:]:
+            prob.get_vars_and_bounds = (
+                lambda x0j=x0j: (x0j,) + tuple(base()[1:]))
+            solver = prob.build_fused_tr(dict(EIG33_OPTS))
+            start = len(prob.lobpcg_iters_log)
+            r1, s1 = solver.solve()
+            # from the start's eigensolve, which the solver's build ran
+            ones.append((r1["fobj"], [r1["niter"], int(s1.subiters),
+                                      prob.lobpcg_iters_log[start - 1:]]))
+        prob.get_vars_and_bounds = base
+        for j, (f1, one) in enumerate(ones):
+            log(f"[eig batched crosscheck] {name} instance {j} alone on the "
+                f"card: fobj {f1:.15e}, counts {one}")
+            check(one == cc[j], f"{name} instance {j}: single {one}, "
+                  f"batched {cc[j]}")
+            check(_rel(f1, fc[j]) <= 1e-9, f"{name} instance {j}: single "
+                  f"{f1!r}, batched {fc[j]!r}")
+    log(f"[eig batched crosscheck] phase 33 took "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def _bitwise(torch, a, b):
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
+                      mma_files):
+    """Phase 34: checkpoints at full width (a) of the fused IP at n = 2^20
+    in float32 (ip_checkpoint_file, resumed from the iteration-10 file),
+    (b) of the host IP (optimize(checkpoint=...), read_solution_file) and
+    (c) of FusedMMA on the 96x48 bench configuration (phase 7's
+    checkpoint_path files, ``mma_files``, resumed from iteration 30).
+    Returns the launches of (a)'s solve and of (b)'s."""
+    import shutil
+
+    from paropt_torch import InteriorPoint
+    from paropt_torch.ip_fused import fused_ip_optimize
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.mma import FusedMMA
+    from paropt_torch.ops import kernels
+    from paropt_torch.utils.checkpoint import restore_state, save_state
+    t_phase = time.perf_counter()
+    BUILD.mkdir(exist_ok=True)
+    tag = f"[checkpoint fused ip n={N_MAIN} float32]"
+    path = BUILD / "chip_smoke_ip.pt"
+    kept = {}
+
+    def problem(cls=SyntheticTopology):
+        return cls(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                   device="cuda")
+
+    opts = {"dtype": "float32", "qn_subspace_size": MSUB,
+            "qn_subspace_auto": False, "abs_res_tol": 1e-6,
+            "iterative_refinement_steps": 0, "write_output_frequency": 10}
+    # the template: a solve's state of this problem (one step)
+    _, template = fused_ip_optimize(problem(), dict(
+        opts, max_major_iters=1, write_output_frequency=0))
+
+    class Kept(SyntheticTopology):
+        """Keeps a copy of the checkpoint file at each write-output call
+        (it then holds the previous cadence's state)."""
+
+        def write_output(self, it, x):
+            if path.exists():
+                k = int(restore_state(str(path), template).k)
+                kept[k] = BUILD / f"chip_smoke_ip_{k}.pt"
+                shutil.copy(path, kept[k])
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, state = fused_ip_optimize(problem(Kept), dict(
+        opts, ip_checkpoint_file=str(path)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    t1 = time.perf_counter()
+    save_state(str(path), state)
+    write_s = time.perf_counter() - t1
+    log(f"{tag} with ip_checkpoint_file at cadence 10: {res['niter']} "
+        f"iterations (phase 4: {ip_iters}), fobj {res['fobj']!r} (phase 4: "
+        f"{ip_fobj!r}), {wall:.3f} s; checkpoints kept of iterations "
+        f"{sorted(kept)}"
+        f"; file {path.stat().st_size / 2**20:.1f} MiB, written in "
+        f"{write_s:.3f} s; launches {launches}")
+    check(res["niter"] == ip_iters and res["fobj"] == ip_fobj
+          and _bitwise(torch, state.vars.x, ip_x),
+          "the checkpointing solve does not end as phase 4 does")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched")
+    check(10 in kept, f"no iteration-10 checkpoint: {sorted(kept)}")
+    restored = restore_state(str(kept[10]), state)
+    t0 = time.perf_counter()
+    res2, state2 = fused_ip_optimize(problem(), dict(
+        opts, write_output_frequency=0), state0=restored)
+    torch.cuda.synchronize()
+    log(f"{tag} resumed from iteration {int(restored.k)}: {res2['niter']} "
+        f"iterations, fobj {res2['fobj']!r} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    check(res2["niter"] == ip_iters and res2["fobj"] == ip_fobj
+          and _bitwise(torch, state2.vars.x, ip_x),
+          "the resumed solve does not end on the uninterrupted one")
+
+    # (b) the host IP's npz solution file
+    tag = f"[checkpoint host ip n={N_MAIN} float32]"
+    npz = BUILD / "chip_smoke_host_ip.npz"
+    hopts = {"output_file": None, "dtype": "float32",
+             "qn_subspace_size": MSUB, "abs_res_tol": 1e-6,
+             "iterative_refinement_steps": 0, "write_output_frequency": 10}
+    ip = InteriorPoint(problem(), dict(hopts))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = ip.optimize(checkpoint=str(npz))
+    torch.cuda.synchronize()
+    host_launches = dict(kernels.LAUNCHES)
+    log(f"{tag} optimize(checkpoint=...): {res['niter']} iterations, fobj "
+        f"{res['fobj']!r}, {time.perf_counter() - t0:.3f} s; launches "
+        f"{host_launches}")
+    import numpy as np
+    with np.load(npz) as dat:
+        written = {k: dat[k] for k in dat.files}
+    again = InteriorPoint(problem(), dict(hopts))
+    again.read_solution_file(str(npz))
+    same = all(np.array_equal(getattr(again.vars, k).cpu().numpy(), v)
+               for k, v in written.items() if k != "mu")
+    check(same and again.mu == float(written["mu"]),
+          "read_solution_file does not give back the state written")
+    t0 = time.perf_counter()
+    res2 = again.optimize()
+    log(f"{tag} resumed from the last cadence file: converged "
+        f"{res2['converged']} in {res2['niter']} iterations, res_norm "
+        f"{res2['res_norm']:.3e} ({time.perf_counter() - t0:.3f} s)")
+    check(res2["converged"], "the resumed host IP did not converge")
+    ip.write_solution_file(str(npz))
+    final = InteriorPoint(problem(), dict(hopts))
+    final.read_solution_file(str(npz))
+    check(all(_bitwise(torch, getattr(final.vars, f), getattr(ip.vars, f))
+              for f in written if f != "mu"),
+          "the final state does not read back bit for bit")
+
+    # (c) FusedMMA on the 96x48 bench configuration: phase 7's run wrote
+    # its state every 10 outer iterations; 30 more from its iteration-30
+    # file
+    tag = "[checkpoint mma 96x48 float32]"
+    prob = FEMTopology(96, 48, cg_iters=25, solver="mgcg",
+                       dtype=torch.float32, device="cuda")
+    solver = FusedMMA(prob, {"mma_max_iterations": 30,
+                             "mma_output_file": None, "dtype": "float32"})
+    check(30 in mma_files, f"phase 7 kept no iteration-30 checkpoint: "
+          f"{sorted(mma_files)}")
+    restored = restore_state(str(mma_files[30]), solver._state0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, st = solver.solve(state0=restored)
+    torch.cuda.synchronize()
+    mma_launches = dict(kernels.LAUNCHES)
+    log(f"{tag} phase 7's iteration-{int(restored.k)} checkpoint (cadence "
+        f"10) resumed for 30 more outer iterations: fobj {res['fobj']!r} "
+        f"(phase 7's uninterrupted 60: {mma_fobj!r}), {res['niter']} outer "
+        f"iterations, {time.perf_counter() - t0:.2f} s; launches "
+        f"{mma_launches}")
+    check(int(restored.k) == 30, "the iteration-30 checkpoint does not "
+          "hold iteration 30")
+    check(res["niter"] == 60 and res["fobj"] == mma_fobj
+          and _bitwise(torch, st.x, mma_x),
+          "the resumed MMA does not end on phase 7's 60-iteration run")
+    for p in [path, npz] + list(kept.values()) + list(mma_files.values()):
+        p.unlink(missing_ok=True)
+    log(f"[checkpoint] phase 34 took {time.perf_counter() - t_phase:.2f} s")
+    return launches, host_launches
+
+
+def _compat_topology(ParOpt, n, block=BLOCK):
+    """SyntheticTopology as a reference user writes a problem: numpy fill
+    callbacks for the objective, the volume constraint and the n/block
+    block constraints (nwblock = 1), the arithmetic of
+    paropt_torch/models/topology.py (weights from default_rng(0), the
+    five-tap Hann filter with edge padding).  Returns the problem class
+    and the objective and its gradient as numpy functions."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    w = 0.5 + rng.random(n)
+    taps = np.hanning(7)[1:-1]
+    taps = taps / taps.sum()
+    nw = n // block
+
+    def filt(x):
+        xp = np.concatenate([np.full(2, x[0]), x, np.full(2, x[-1])])
+        return sum(taps[j] * xp[j:j + n] for j in range(5))
+
+    def objective(x):
+        return np.sum(w / (0.01 + filt(x))) / n
+
+    def gradient(x):
+        v = -w / (0.01 + filt(x)) ** 2 / n
+        gp = np.zeros(n + 4)
+        for j in range(5):
+            gp[j:j + n] += taps[j] * v
+        g = gp[2:2 + n].copy()
+        g[0] += gp[:2].sum()
+        g[-1] += gp[-2:].sum()
+        return g
+
+    class Topology(ParOpt.Problem):
+        def __init__(self):
+            super().__init__(None, nvars=n, ncon=1, nwcon=nw, nwblock=1)
+
+        def getVarsAndBounds(self, x, lb, ub):
+            x[:] = 0.3
+            lb[:] = 0.0
+            ub[:] = 1.0
+
+        def evalObjCon(self, x):
+            return 0, objective(x), [0.4 - np.mean(x)]
+
+        def evalObjConGradient(self, x, g, A):
+            g[:] = gradient(x)
+            A[0][:] = -1.0 / n
+            return 0
+
+        def evalSparseCon(self, x, out):
+            out[:] = 0.6 - x.reshape(block, nw).mean(axis=0)
+
+        def addSparseJacobian(self, alpha, x, px, out):
+            out += -alpha / block * px.reshape(block, nw).sum(axis=0)
+
+        def addSparseJacobianTranspose(self, alpha, x, pz, out):
+            out += (-alpha / block
+                    * np.broadcast_to(pz, (block, nw))).reshape(-1)
+
+        def addSparseInnerProduct(self, alpha, x, c, A):
+            A += alpha / block ** 2 * c.reshape(block, nw).sum(axis=0)
+
+    return Topology, objective, gradient
+
+
+def phase_surface(torch):
+    """Phase 35: the reference's surface at full width in float64 on the
+    card: (a) a compat.Problem of SyntheticTopology(2^20) through
+    compat.InteriorPoint against the native InteriorPoint, (b) a
+    FunctionProblem of its objective and volume constraint against a
+    native problem of the same two functions, (c) ReducedProblem with a
+    non-design region on FEMTopology(768, 384) through the host MMA.
+    Returns the launches of the compat route and of its native yardstick."""
+    import numpy as np
+
+    from paropt_torch import MMA, InteriorPoint, compat
+    from paropt_torch.drivers import FunctionProblem
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.ops import kernels
+    from paropt_torch.reduced import ReducedProblem
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    opts = {"output_file": None, "dtype": "float64",
+            "qn_subspace_size": MSUB, "abs_res_tol": 1e-6,
+            "iterative_refinement_steps": 0}
+    Topology, objective, gradient = _compat_topology(compat, N_MAIN)
+
+    def run(tag, solver, syncs):
+        times, reads, to_host, to_dev = [], [], [], []
+
+        def mark():
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+            reads.append(syncs.count)
+            to_host.append(syncs.bytes_to_host)
+            to_dev.append(syncs.bytes_to_device)
+
+        solver.problem.write_output = lambda it, x: mark()
+        solver.options["write_output_frequency"] = 1
+        kernels.reset_launches()
+        mark()
+        res = solver.optimize()
+        mark()
+        launches = dict(kernels.LAUNCHES)
+        per = [(times[i + 1] - times[i], reads[i + 1] - reads[i],
+                to_host[i + 1] - to_host[i], to_dev[i + 1] - to_dev[i])
+               for i in range(len(times) - 1)]
+        log(f"{tag} {res['niter']} iterations, fobj {res['fobj']!r}, "
+            f"converged {res['converged']}, {times[-1] - times[0]:.3f} s; "
+            f"launches {launches}")
+        log(f"{tag} per iteration (s, host reads, bytes to the host, bytes "
+            f"to the card): " + "; ".join(
+                f"{s:.4f} {r} {h} {d}" for s, r, h, d in per))
+        return res, launches
+
+    # (a) the fill-callback problem with its block constraints
+    prob = Topology()
+    cres, compat_launches = run(
+        f"[compat n={N_MAIN} float64]",
+        compat.InteriorPoint(prob, dict(opts)), prob.syncs)
+    native = InteriorPoint(SyntheticTopology(n=N_MAIN, block=BLOCK,
+                                             dtype=f64, device="cuda"),
+                           dict(opts))
+    nres, native_launches = run(f"[native n={N_MAIN} float64]", native,
+                                native.syncs)
+    dx = float(torch.max(torch.abs(cres["x"] - nres["x"])))
+    log(f"[compat] against the native route: iterations {cres['niter']} / "
+        f"{nres['niter']}, fobj rel {_rel(cres['fobj'], nres['fobj']):.2e}"
+        f", max |dx| {dx:.2e}")
+    check(cres["converged"] and nres["converged"],
+          "a full-width route did not converge")
+    check(cres["niter"] == nres["niter"]
+          and _rel(cres["fobj"], nres["fobj"]) <= 1e-9 and dx <= 1e-7,
+          "the compat route does not match the native one")
+    check(compat_launches["qn_roll_update"] > 0
+          and all(c > 0 for c in native_launches.values()),
+          f"launches: compat {compat_launches}, native {native_launches}")
+
+    # (b) FunctionProblem of the objective and the volume constraint
+    n = N_MAIN
+    fp = FunctionProblem(
+        np.full(n, 0.3), np.zeros(n), np.ones(n), objective=objective,
+        gradient=gradient, constraints=lambda x: np.array([0.4 - x.mean()]),
+        jacobian=lambda x: np.full((1, n), -1.0 / n))
+    fres, fn_launches = run(f"[FunctionProblem n={n} float64]",
+                            InteriorPoint(fp, dict(opts)), fp.syncs)
+    dense = InteriorPoint(SyntheticTopology(n=n, block=BLOCK,
+                                            use_sparse=False, dtype=f64,
+                                            device="cuda"), dict(opts))
+    dres, _ = run(f"[native dense n={n} float64]", dense, dense.syncs)
+    check(fres["niter"] == dres["niter"]
+          and _rel(fres["fobj"], dres["fobj"]) <= 1e-9,
+          f"FunctionProblem {fres['niter']} / {fres['fobj']!r} against "
+          f"{dres['niter']} / {dres['fobj']!r}")
+
+    # (c) a non-design region around the load of the 768x384 cantilever
+    tag = "[reduced fem 768x384 float64]"
+    fem = FEMTopology(768, 384, cg_iters=25, solver="mgcg", dtype=f64,
+                      device="cuda")
+    ex, ey = np.meshgrid(np.arange(fem.nex - 8, fem.nex),
+                         np.arange(fem.ney // 2 - 4, fem.ney // 2 + 4),
+                         indexing="ij")
+    fixed = (ex * fem.ney + ey).ravel()
+    red = ReducedProblem(fem, fixed, np.ones(fixed.size))
+    xr, _, _ = red.get_vars_and_bounds()
+    gr, _ = red.eval_obj_con_gradient(xr)
+    gf, _ = fem.eval_obj_con_gradient(red.expand(xr))
+    gerr = float(torch.max(torch.abs(gr - gf[red.free_idx]))
+                 / torch.max(torch.abs(gf)))
+    f0 = float(red.eval_obj_con(xr)[0])
+    mma = MMA(red, {"mma_max_iterations": 5, "mma_output_file": None,
+                    "output_file": None, "dtype": "float64"})
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = mma.optimize()
+    torch.cuda.synchronize()
+    full = red.expand(res["x"])
+    log(f"{tag} {fixed.size} elements fixed at 1.0 around the load; "
+        f"reduced gradient against the full one's free entries: rel "
+        f"{gerr:.2e}; 5 host MMA outer iterations: fobj {f0:.6f} -> "
+        f"{res['fobj']:.6f} ({time.perf_counter() - t0:.2f} s, launches "
+        f"{dict(kernels.LAUNCHES)})")
+    check(gerr <= 1e-12, f"reduced gradient off by {gerr:.2e}")
+    check(bool(torch.all(full[torch.as_tensor(fixed, device="cuda")]
+                         == 1.0)), "a fixed element moved")
+    check(res["fobj"] < f0, "fobj did not fall")
+    log(f"[surface] phase 35 took {time.perf_counter() - t_phase:.2f} s")
+    return compat_launches, native_launches, fn_launches
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
           f"paropt_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[time] phase {phase} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     phase_device(torch)
+    stamp("1")
     phase_build()
+    stamp("2")
     timing = phase_kernels(torch)
+    stamp("3")
     phase_kernels_batched(torch, timing)
-    launches, ip_iters = phase_slice(torch)
+    stamp("3b")
+    launches, ip_iters, ip_fobj, ip_x = phase_slice(torch)
+    stamp("4")
     phase_crosscheck(torch)
+    stamp("5")
     for dtype in (torch.float32, torch.float64):
         phase_mma_full(torch, dtype, iters=10)
-    phase_mma_bench(torch)
+    stamp("6")
+    mma_fobj, mma_x, mma_files = phase_mma_bench(torch)
+    stamp("7")
     phase_mma_crosscheck(torch)
+    stamp("8")
     tr_launches, tr_niter, tr_fobj = phase_tr_full(torch)
+    stamp("9")
     phase_tr_bench(torch)
+    stamp("10")
     phase_tr_crosscheck(torch)
+    stamp("11")
     host_tr_launches = phase_host_tr_full(torch, tr_niter, tr_fobj)
+    stamp("12")
     host_ip_launches, host_ip_iters = phase_host_ip_full(torch, ip_iters)
+    stamp("13")
     phase_host_mma(torch)
+    stamp("14")
     phase_host_crosscheck(torch)
+    stamp("15")
     nk_launches = phase_nk_full(torch, ip_iters, host_ip_iters)
+    stamp("16")
     phase_nk_crosscheck(torch)
+    stamp("17")
     phase_mma3d_full(torch)
+    stamp("18")
     phase_mma3d_bench(torch)
+    stamp("19")
     phase_3d_crosscheck(torch)
+    stamp("20")
     batched_launches = phase_batched_ip(torch)
+    stamp("21")
     phase_batched_small(torch)
+    stamp("22")
     phase_batched_mma(torch)
+    stamp("23")
     batched_tr_launches = phase_batched_tr(torch)
+    stamp("24")
     phase_batched_crosscheck(torch)
-    eig_launches = phase_eig3d_full(torch)
-    phase_eig_bench(torch)
-    phase_eig_crosscheck(torch)
-    csr_launches = phase_csr_full(torch)
-    electron_launches, ssto_launches = phase_cops_ssto(torch)
-    phase_csr_crosscheck(torch)
+    stamp("25")
+    # phase 33's CPU batched solves run in a child process meanwhile
+    cpu_job = _eig33_cpu_start()
+    try:
+        eig_launches, eig_s_per_iter = phase_eig3d_full(torch)
+        stamp("26")
+        phase_eig_bench(torch)
+        stamp("27")
+        eig_singles = phase_eig_crosscheck(torch)
+        stamp("28")
+        csr_launches = phase_csr_full(torch)
+        stamp("29")
+        electron_launches, ssto_launches = phase_cops_ssto(torch)
+        stamp("30")
+        phase_csr_crosscheck(torch)
+        stamp("31")
+        eig_batched_launches = phase_eig3d_batched(torch, eig_s_per_iter)
+        stamp("32")
+        eig_batched_f64_launches = phase_eig_batched_crosscheck(
+            torch, cpu_job, eig_singles)
+        stamp("33")
+    finally:
+        if cpu_job.poll() is None:
+            cpu_job.kill()
+            cpu_job.wait()
+    ckpt_ip_launches, ckpt_host_ip_launches = phase_checkpoints(
+        torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x, mma_files)
+    stamp("34")
+    compat_launches, compat_native_launches, function_launches = \
+        phase_surface(torch)
+    stamp("35")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -2631,6 +3311,15 @@ def main():
                      "csr_launches": csr_launches[name],
                      "electron_launches": electron_launches[name],
                      "ssto_launches": ssto_launches[name],
+                     "eig_batched_launches": eig_batched_launches[name],
+                     "eig_batched_f64_launches":
+                         eig_batched_f64_launches[name],
+                     "ckpt_ip_launches": ckpt_ip_launches[name],
+                     "ckpt_host_ip_launches": ckpt_host_ip_launches[name],
+                     "compat_launches": compat_launches[name],
+                     "compat_native_launches":
+                         compat_native_launches[name],
+                     "function_launches": function_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -34,7 +34,13 @@ counterpart:
 - ``ops.kernels``: hand-written CUDA kernels for Hopper (``csrc/*.cu``)
   that replace the three Pallas kernels of ``paropt_tpu/ops/
   pallas_kernels.py``, each beside its plain PyTorch version;
-- ``convert``: numpy-dict conversion of paropt_tpu states into the port's.
+- ``convert``: numpy-dict conversion of paropt_tpu states into the port's;
+  ``utils.checkpoint``: checkpoints of solver states (``torch.save``);
+- ``reduced``: ``ReducedProblem`` (design freezes, non-design regions);
+  ``compat``: the reference's fill-callback surface (``ParOpt.Problem``,
+  ``ParOpt.Optimizer``, ...); ``drivers``: ``FunctionProblem`` and the
+  OpenMDAO and pyOptSparse drivers; ``utils.plot_history``: convergence
+  plots from the logs.
 
 The package imports torch and numpy only, never jax.  Nothing here sets a
 global default dtype; every constructor takes a device and a dtype, and a device left out
@@ -60,3 +66,14 @@ __all__ = ["Problem", "SparseJacobian", "CSRSparseProblem",
            "resolve_device"]
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # loaded on first use, as in paropt_tpu
+    if name == "ReducedProblem":
+        from .reduced import ReducedProblem
+        return ReducedProblem
+    if name == "compat":
+        import importlib
+        return importlib.import_module(".compat", __name__)
+    raise AttributeError(name)

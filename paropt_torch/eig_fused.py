@@ -41,7 +41,7 @@ from .ops.kkt import ProblemData
 from .tr import (FusedTROptions, QPParams, _add_row, _fused_ip_options,
                  _inner_solve, _qp_Bp, _tr_kkt, _tr_penalties, _tr_radius,
                  _tr_rho, _viol, make_qp_model)
-from .tree import pytree
+from .tree import pytree, tmap
 from .utils.options import make_options
 
 __all__ = ["FusedEigenTR", "EigModel", "FusedEigTRState"]
@@ -95,79 +95,64 @@ def _merged_compact(qn, eig: EigModel, z0, dt):
     return torch.zeros((), dtype=dt, device=Me.device), eig.h, Me
 
 
-def _fused_eig_tr_step(eval_full, qp_model, inf_model, qp_opts, inf_opts,
-                       to: FusedTROptions, index: int, lbv, ubv,
-                       d_tmpl: ProblemData, state: FusedEigTRState,
-                       host=bool) -> FusedEigTRState:
-    """One fused eigen-TR outer iteration (`sl1qpOptimize`'s body with the
-    `ParOptEigenSubproblem` model); ``host`` reads a device flag (the inner
-    solves' reads)."""
-    R = _Run(host)
-    xk, fk, ck, gk, Ak = state.xk, state.fk, state.ck, state.gk, state.Ak
-    eig = state.eig
-    dt, dev = xk.dtype, xk.device
-    ncon = ck.shape[0]
-    nineq = to.ninequality
-    idx = torch.arange(ncon, device=dev)
+class _EigHead(NamedTuple):
+    """An outer eigen-TR iteration up to its inner solves."""
+    lk: torch.Tensor         # the trust-region box about xk
+    uk: torch.Tensor
+    p0: torch.Tensor         # the inner solves' start
+    params: QPParams         # the QP model with the merged compact
+    gamma_s: torch.Tensor    # the QP solve's elastic penalties
 
+
+def _eig_head(to: FusedTROptions, lbv, ubv, state: FusedEigTRState):
+    """The trust-region box and the merged-compact QP model."""
+    xk, eig = state.xk, state.eig
+    dt, dev = xk.dtype, xk.device
+    idx = torch.arange(state.ck.shape[0], device=dev)
     lk = torch.maximum(-state.tr_size, lbv - xk)
     uk = torch.minimum(state.tr_size, ubv - xk)
-    p0 = 0.5 * (lk + uk)
-
     b0, Z, M = _merged_compact(state.qn, eig, state.z0, dt)
-    compact = (b0, Z, M)
     one = torch.ones((), dtype=dt, device=dev)
-    params = QPParams(fk=fk, gk=gk, ck=ck, Ak=Ak,
+    params = QPParams(fk=state.fk, gk=state.gk, ck=state.ck, Ak=state.Ak,
                       cwk=torch.zeros(0, dtype=dt, device=dev),
                       Aw_cols=None, Aw_vals=None, b0=b0, Z=Z, M=M,
                       obj_scale=one, eig_M=eig.M, eig_h=eig.h)
+    return _EigHead(lk=lk, uk=uk, p0=0.5 * (lk + uk), params=params,
+                    gamma_s=torch.where(idx < to.ninequality, 0.0,
+                                        state.gamma))
 
-    def c_model(p):
-        """The constraint model: linear rows, the eigen row's curvature
-        term added (the host EigenSubproblem's model)."""
-        hp = eig.h @ p
-        return _add_row(ck + Ak @ p, index,
-                        0.5 * torch.dot(hp, eig.M @ hp))
 
-    # -- steering infeasibility solve (`minimizeInfeas`) --------------------
-    if to.adaptive_gamma:
-        gamma_big = max(1e6, 1e2 * to.gamma_max)
-        inf_params = params._replace(
-            obj_scale=torch.full_like(one, 1.0 / gamma_big))
-        ones = torch.ones(ncon, dtype=dt, device=dev)
-        d_inf = dataclasses.replace(
-            d_tmpl, lb=lk, ub=uk,
-            gamma_s=torch.where(idx < nineq, 0.0, ones), gamma_t=ones)
-        with record_function("paropt.tr.steer"):
-            st_inf = _inner_solve(inf_model, inf_opts, R, p0, d_inf, None,
-                                  inf_params, None, None)
-        # the same (quadratic eigen row) model on both sides of the
-        # adaptive-gamma test
-        best_con_infeas = _viol(c_model(st_inf.vars.x), nineq)
-        inf_iters = st_inf.k
-    else:
-        best_con_infeas = torch.zeros(ncon, dtype=dt, device=dev)
-        inf_iters = torch.zeros((), dtype=torch.int32, device=dev)
+def _c_model(index: int, state: FusedEigTRState, p):
+    """The constraint model: linear rows, the eigen row's curvature term
+    added (the host EigenSubproblem's model)."""
+    eig = state.eig
+    hp = eig.h @ p
+    return _add_row(state.ck + state.Ak @ p, index,
+                    0.5 * torch.dot(hp, eig.M @ hp))
 
-    # -- QP subproblem with the merged Hessian -------------------------------
-    d_qp = dataclasses.replace(
-        d_tmpl, lb=lk, ub=uk,
-        gamma_s=torch.where(idx < nineq, 0.0, state.gamma),
-        gamma_t=state.gamma)
-    with record_function("paropt.tr.qp"):
-        st = _inner_solve(qp_model, qp_opts, R, p0, d_qp, None, params,
-                          compact, None)
-    p, z = st.vars.x, st.vars.z
 
-    # -- the model at the step; the eigen row's model value is quadratic ----
-    cm = c_model(p)
-    fm = fk + torch.dot(gk, p) + 0.5 * torch.dot(p, _qp_Bp(params, p))
+def _eig_mid(index: int, nineq: int, state: FusedEigTRState,
+             params: QPParams, p_inf, p):
+    """After the inner solves: the steering step's best infeasibility (the
+    same quadratic eigen-row model on both sides of the adaptive-gamma
+    test), the model at the QP step, and the trial point."""
+    best = (torch.zeros_like(state.ck) if p_inf is None
+            else _viol(_c_model(index, state, p_inf), nineq))
+    cm = _c_model(index, state, p)
+    fm = (state.fk + torch.dot(state.gk, p)
+          + 0.5 * torch.dot(p, _qp_Bp(params, p)))
+    return best, cm, fm, state.xk + p
 
-    # -- trial evaluation: one eval_full prices the trial and refreshes the
-    #    eigen model; state.V warm-starts the eigensolve ---------------------
+
+def _eig_tail(to: FusedTROptions, index: int, lbv, ubv,
+              state: FusedEigTRState, best_con_infeas, cm, fm, p, z,
+              iters, ft, ct, gt, At, Mt, Minvt, ht, Vt) -> FusedEigTRState:
+    """The outer iteration after its trial evaluation: the QN update,
+    acceptance and the radius, the eigen model and multiplier refresh, the
+    penalties and the KKT error."""
+    xk, fk, ck, gk, Ak = state.xk, state.fk, state.ck, state.gk, state.Ak
+    eig = state.eig
     xt = xk + p
-    with record_function("paropt.tr.eval"):
-        ft, ct, gt, At, Mt, Minvt, ht, Vt = eval_full(xt, state.V)
     # z must be finite too: a failed inner QP can return a finite p with a
     # NaN z, which would poison the QN pair and the multiplier refresh
     trial_finite = (torch.isfinite(ft) & torch.all(torch.isfinite(ct))
@@ -220,8 +205,69 @@ def _fused_eig_tr_step(eval_full, qp_model, inf_model, qp_opts, inf_opts,
     return FusedEigTRState(
         xk=xk_n, fk=fk_n, ck=ck_n, gk=gk_n, Ak=Ak_n, qn=qn_new, eig=eig_n,
         z0=z0_n, tr_size=tr_n, gamma=gamma_n, k=state.k + 1,
-        subiters=state.subiters + st.k + inf_iters, converged=converged,
+        subiters=state.subiters + iters, converged=converged,
         infeas=infeas_new, l1=l1, linf=linf, rho=rho, V=V_n)
+
+
+def _fused_eig_tr_step(eval_full, eval_full_batched, qp_model, inf_model,
+                       qp_opts, inf_opts, to: FusedTROptions, index: int,
+                       lbv, ubv, d_tmpl: ProblemData,
+                       state: FusedEigTRState, host=bool,
+                       run: Optional[_Run] = None) -> FusedEigTRState:
+    """One fused eigen-TR outer iteration (`sl1qpOptimize`'s body with the
+    `ParOptEigenSubproblem` model); ``host`` reads a device flag (the inner
+    solves' reads).  A batched ``run`` steps k instances: the inner solves
+    batched and the trial priced by ``eval_full_batched``."""
+    R = run or _Run(host)
+    dt, dev = state.xk.dtype, state.xk.device
+    ncon = d_tmpl.ncon
+    nineq = to.ninequality
+    idx = torch.arange(ncon, device=dev)
+    head = R.call(functools.partial(_eig_head, to, lbv, ubv), (0,), state)
+    params = head.params
+    frozen = state.converged if R.batched else None
+    # the instance axes of the inner solves' data: the box is per instance
+    none = tmap(lambda _: None, d_tmpl)
+
+    # -- steering infeasibility solve (`minimizeInfeas`) --------------------
+    p_inf = None
+    inf_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    if to.adaptive_gamma:
+        gamma_big = max(1e6, 1e2 * to.gamma_max)
+        inf_params = params._replace(
+            obj_scale=torch.full_like(params.obj_scale, 1.0 / gamma_big))
+        ones = torch.ones(ncon, dtype=dt, device=dev)
+        d_inf = dataclasses.replace(
+            d_tmpl, lb=head.lk, ub=head.uk,
+            gamma_s=torch.where(idx < nineq, 0.0, ones), gamma_t=ones)
+        with record_function("paropt.tr.steer"):
+            st_inf = _inner_solve(inf_model, inf_opts, R, head.p0, d_inf,
+                                  dataclasses.replace(none, lb=0, ub=0),
+                                  inf_params, None, frozen)
+        p_inf, inf_iters = st_inf.vars.x, st_inf.k
+
+    # -- QP subproblem with the merged Hessian -------------------------------
+    d_qp = dataclasses.replace(d_tmpl, lb=head.lk, ub=head.uk,
+                               gamma_s=head.gamma_s, gamma_t=state.gamma)
+    with record_function("paropt.tr.qp"):
+        st = _inner_solve(qp_model, qp_opts, R, head.p0, d_qp,
+                          dataclasses.replace(none, lb=0, ub=0, gamma_s=0,
+                                              gamma_t=0),
+                          params, (params.b0, params.Z, params.M), frozen)
+    p, z = st.vars.x, st.vars.z
+
+    # -- the model at the step; the eigen row's model value is quadratic ----
+    best, cm, fm, xt = R.call(
+        functools.partial(_eig_mid, index, nineq),
+        (0, 0, None if p_inf is None else 0, 0), state, params, p_inf, p)
+
+    # -- trial evaluation: one eval_full prices the trial and refreshes the
+    #    eigen model; state.V warm-starts the eigensolve ---------------------
+    with record_function("paropt.tr.eval"):
+        trial = (eval_full_batched if R.batched else eval_full)(xt, state.V)
+    return R.call(functools.partial(_eig_tail, to, index, lbv, ubv),
+                  (0,) * (7 + len(trial)), state, best, cm, fm, p, z,
+                  st.k + inf_iters, *trial)
 
 
 def _wants_warm_start(problem) -> bool:
@@ -263,12 +309,28 @@ class FusedEigenTR:
         n, ncon = problem.nvars, problem.ncon
         warm = _wants_warm_start(problem)
 
-        def eval_full(x, V=None):
-            out = problem.eval_full(x, V) if warm else problem.eval_full(x)
+        def cast(out, V, *kb):
             f, c, g, A, M, Minv, h = out[:7]
-            return (f.to(dt), c.to(dt).reshape(ncon), g.to(dt),
-                    A.to(dt).reshape(ncon, n), M.to(dt), Minv.to(dt),
+            return (f.to(dt), c.to(dt).reshape(*kb, ncon), g.to(dt),
+                    A.to(dt).reshape(*kb, ncon, n), M.to(dt), Minv.to(dt),
                     h.to(dt), out[7] if warm else V)
+
+        def eval_full(x, V=None):
+            return cast(problem.eval_full(x, V) if warm
+                        else problem.eval_full(x), V)
+
+        # k instances priced at once: the problem's own batched evaluation
+        # (the frequency models' batched eigensolve, whose host reads
+        # cannot run under vmap), else eval_full under torch.func.vmap
+        batched = getattr(problem, "eval_full_batched", None)
+
+        def eval_full_batched(xs, V=None):
+            if batched is not None:
+                out = batched(xs, V) if warm else batched(xs)
+            else:
+                out = _Run(None, batched=True).call(
+                    eval_full, (0, None if V is None else 0), xs, V)
+            return cast(out, V, xs.shape[0])
 
         eig_idx = index if eig_row_model == "quadratic" else None
         qp_model = make_qp_model(False, "quadratic", eig_index=eig_idx)
@@ -340,9 +402,11 @@ class FusedEigenTR:
         self._index = index
         self._problem = problem
         self._write_freq = o["tr_write_output_frequency"]
+        self._eval_full_batched = eval_full_batched
         self._step = functools.partial(
-            _fused_eig_tr_step, eval_full, qp_model, inf_model, qp_opts,
-            inf_opts, to, index, lbv, ubv, d_tmpl, host=self.syncs)
+            _fused_eig_tr_step, eval_full, eval_full_batched, qp_model,
+            inf_model, qp_opts, inf_opts, to, index, lbv, ubv, d_tmpl,
+            host=self.syncs)
 
     def solve(self, state0: Optional[FusedEigTRState] = None, chunk="auto",
               checkpoint_path=None):
@@ -352,9 +416,9 @@ class FusedEigenTR:
         outer iterations from it (paropt_tpu's jitted loop stops at that
         absolute count; ROADMAP queue 3).  The problem's
         ``write_output(it, x)`` fires every ``tr_write_output_frequency``
-        outer iterations.  ``chunk`` other than "auto" or None and
-        ``checkpoint_path`` raise: the chunked solve and checkpoints are not
-        ported yet."""
+        outer iterations, and ``checkpoint_path`` gets the full state at
+        the same cadence (`utils.checkpoint`).  ``chunk`` other than "auto"
+        or None raises: the chunked solve is not ported."""
         from .utils.chunked import make_write_output_hook, user_write_output
         if chunk not in ("auto", None):
             raise NotImplementedError("the chunked solve is not ported yet")
@@ -377,8 +441,44 @@ class FusedEigenTR:
         return result, state
 
     def solve_batched(self, x0_batch, chunk="auto"):
-        """Not ported yet: LOBPCG's residual-driven exit under
-        ``torch.func.vmap`` is ROADMAP queue 1 item 12b."""
-        raise NotImplementedError(
-            "FusedEigenTR.solve_batched is not ported yet (ROADMAP queue 1 "
-            "item 12b)")
+        """k multi-start solves as one (paropt_tpu/eig_fused.py:490-525):
+        each instance's initial model (f, c, g, A, the eigen model M, Minv,
+        h and its basis V at its x0) comes from one batched evaluation, the
+        outer step's phases and inner solves run under ``torch.func.vmap``,
+        each trial is priced by one batched eigensolve, and each instance
+        keeps its own warm-start basis.  One host read of "every instance
+        converged" per outer iteration; an instance that has converged
+        keeps its state bit for bit while the others iterate.
+
+        ``x0_batch``: [k, n] starting points.  ``chunk``: "auto" or None,
+        both the whole loop.  Returns (results, states): ``results`` holds
+        per-instance numpy arrays of fobj, converged, niter, infeas, l1 and
+        linfty (and x [k, n]); ``states`` is the `FusedEigTRState` with a
+        leading k axis."""
+        if chunk not in ("auto", None):
+            raise NotImplementedError("the chunked solve is not ported yet")
+        run = _Run(self.syncs, batched=True)
+        s0 = self._state0
+        x0_batch = torch.as_tensor(x0_batch, dtype=s0.xk.dtype,
+                                   device=s0.xk.device)
+        f0, c0, g0, A0, M0, Minv0, h0, V0 = self._eval_full_batched(
+            x0_batch, None)
+
+        def start(st, x, f, c, g, A, M, Minv, h, V):
+            return dataclasses.replace(
+                st, xk=x, fk=f, ck=c, gk=g, Ak=A,
+                eig=EigModel(M=M, Minv=Minv, h=h), V=V)
+
+        state = run.call(start, (None,) + (0,) * 9, s0, x0_batch, f0, c0,
+                         g0, A0, M0, Minv0, h0, V0)
+        for _ in range(self._to.max_iterations):
+            new = self._step(state, run=run)
+            state = run.freeze(state.converged, new, state)
+            if run.all(state.converged):
+                break
+        results = {"x": state.xk,
+                   **{key: getattr(state, f).cpu().numpy() for key, f in (
+                       ("fobj", "fk"), ("converged", "converged"),
+                       ("niter", "k"), ("infeas", "infeas"), ("l1", "l1"),
+                       ("linfty", "linf"))}}
+        return results, state

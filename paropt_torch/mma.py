@@ -814,8 +814,8 @@ class FusedMMA:
         ``mma_max_iterations`` more outer iterations from it (paropt_tpu's
         jitted loop stops at that absolute count; ROADMAP queue 3).  The
         problem's ``write_output(it, x)`` hook fires every
-        ``write_output_frequency`` outer iterations; checkpoints are not
-        ported yet."""
+        ``write_output_frequency`` outer iterations, and ``checkpoint_path``
+        gets the full state at the same cadence (`utils.checkpoint`)."""
         from .utils.chunked import make_write_output_hook, user_write_output
         hook = make_write_output_hook(
             user_write_output(self._problem), self._write_freq,

@@ -36,7 +36,7 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ip import HostSyncs
-from ..ops.lobpcg import lobpcg_standard
+from ..ops.lobpcg import lobpcg_standard, lobpcg_standard_batched
 from ..problem import Problem
 from .fem_topology import FEMTopology
 from .fem_topology3d import (_CORNERS3D, FEMTopology3D, _from_grid3, _sl,
@@ -68,13 +68,31 @@ class _FrequencyBase(Problem):
         1e3·eps)."""
         return max(1e-8, 1e3 * torch.finfo(self._dtype).eps)
 
+    def _eig_prep(self, x):
+        """(xf, E, msqrt) at x: the filtered density, the SIMP moduli and
+        the square root of the lumped mass."""
+        xf = self.fem._filter(x)
+        return xf, self.fem._simp(xf), torch.sqrt(self._mass(xf))
+
+    def _eig_post(self, x, xf, msqrt, mu, V):
+        """(lam [N] ascending, W [N, nvars] = dlam/dx) from the eigenpairs
+        (mu, V) of S: the element-local sensitivities chained through the
+        density filter by one vjp."""
+        lam = 1.0 / mu                       # ascending: lam[0] smallest
+        # phi = M^-½ v: unit v gives phi' M phi = 1
+        phi = torch.where(msqrt[:, None] > 0, V / msqrt[:, None], 0.0)
+        kterm, mterm = self._sensitivities(phi.T)
+        fem = self.fem
+        dE = fem.penal * xf ** (fem.penal - 1.0) * (fem.e0 - fem.emin)
+        Wf = dE[None, :] * kterm \
+            - lam[:, None] * (1.0 - self.rho_min) * mterm
+        _, filt_vjp = torch.func.vjp(self.fem._filter, x)
+        return lam, torch.func.vmap(lambda w: filt_vjp(w)[0])(Wf)
+
     def _eig_fn(self, x, V0=None):
         """(lam [N] ascending, W [N, nvars] = dlam/dx, V [ndof, N] the
         M^½-basis) at x; a cold start from the seeded block unless V0."""
-        xf, filt_vjp = torch.func.vjp(self.fem._filter, x)
-        E = self.fem._simp(xf)
-        m = self._mass(xf)
-        msqrt = torch.sqrt(m)
+        xf, E, msqrt = self._eig_prep(x)
         cg = torch.func.vmap(lambda col: self.fem._cg(E, col), in_dims=1,
                              out_dims=1)
 
@@ -86,15 +104,30 @@ class _FrequencyBase(Problem):
             mu, V, iters = lobpcg_standard(S, X, m=self.lobpcg_iters,
                                            syncs=self.syncs)
         self.lobpcg_iters_log.append(iters)
-        lam = 1.0 / mu                       # ascending: lam[0] smallest
-        # phi = M^-½ v: unit v gives phi' M phi = 1
-        phi = torch.where(msqrt[:, None] > 0, V / msqrt[:, None], 0.0)
-        kterm, mterm = self._sensitivities(phi.T)
-        fem = self.fem
-        dE = fem.penal * xf ** (fem.penal - 1.0) * (fem.e0 - fem.emin)
-        Wf = dE[None, :] * kterm \
-            - lam[:, None] * (1.0 - self.rho_min) * mterm
-        W = torch.func.vmap(lambda w: filt_vjp(w)[0])(Wf)
+        lam, W = self._eig_post(x, xf, msqrt, mu, V)
+        return lam, W, V
+
+    def _eig_fn_batched(self, xs, V0=None):
+        """`_eig_fn` of kb instances: xs [kb, nvars], V0 [kb, ndof, N] or
+        None (every instance from the seeded block).  The filter, SIMP,
+        mass and sensitivities run under ``torch.func.vmap`` over the
+        instances, S applies the fixed-count CG vmapped over instances and
+        columns, and `lobpcg_standard_batched` reads the batch's exit once
+        per block iteration.  ``lobpcg_iters_log`` gets a list of kb
+        counts.  Returns (lam [kb, N], W [kb, N, nvars], V [kb, ndof, N])."""
+        xf, E, msqrt = torch.func.vmap(self._eig_prep)(xs)
+        cg = torch.func.vmap(
+            torch.func.vmap(self.fem._cg, in_dims=(None, 1), out_dims=1))
+
+        def S(vblock):                   # [kb, ndof, k] -> [kb, ndof, k]
+            return msqrt[..., None] * cg(E, msqrt[..., None] * vblock)
+
+        X = self._X0 if V0 is None else V0
+        with record_function("paropt.eig.lobpcg"):
+            mu, V, iters = lobpcg_standard_batched(
+                S, X, m=self.lobpcg_iters, syncs=self.syncs)
+        self.lobpcg_iters_log.append(iters)
+        lam, W = torch.func.vmap(self._eig_post)(xs, xf, msqrt, mu, V)
         return lam, W, V
 
     def _eval(self, x):
@@ -170,6 +203,19 @@ class _FrequencyBase(Problem):
         Returns (f, c [1], g, A [1, n], M, Minv, h, V)."""
         x = torch.as_tensor(x, dtype=self._dtype, device=self._device)
         lam, W, V = self._eig_fn(x, V0)
+        return self._ks_model(x, lam, W) + (V,)
+
+    def eval_full_batched(self, xs, V0=None):
+        """`eval_full` of kb instances (xs [kb, nvars], V0 [kb, ndof, N] or
+        None) through one batched eigensolve (`_eig_fn_batched`); every
+        output carries the instance axis first."""
+        xs = torch.as_tensor(xs, dtype=self._dtype, device=self._device)
+        lam, W, V = self._eig_fn_batched(xs, V0)
+        return torch.func.vmap(self._ks_model)(xs, lam, W) + (V,)
+
+    def _ks_model(self, x, lam, W):
+        """(f, c [1], g, A [1, n], M, Minv, h) from the eigenvalues and
+        their sensitivities at x, in the compute dtype."""
         g = (lam - self.lam_target) / self.lam_target
         gmin = torch.min(g)
         eta = torch.exp(-self.ks_rho * (g - gmin))
@@ -184,7 +230,7 @@ class _FrequencyBase(Problem):
         e, Q = torch.linalg.eigh(0.5 * (M + M.T))
         e = torch.clamp(e, max=-self._minv_floor() * scale)
         Minv = (Q / e) @ Q.T
-        return (fobj, ks.reshape(1), gobj, dks[None, :], M, Minv, W, V)
+        return (fobj, ks.reshape(1), gobj, dks[None, :], M, Minv, W)
 
     def build_fused_tr(self, options=None, eig_row_model="linear"):
         """The fused eigen TR (`eig_fused.FusedEigenTR`) with the QN seeded

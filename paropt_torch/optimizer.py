@@ -57,6 +57,11 @@ class Optimizer:
         return self._result
 
     def _optimize_fused(self, algo: str) -> Dict[str, Any]:
+        if not getattr(self.problem, "jit_traceable", True):
+            raise ValueError(
+                "use_fused_loop requires a torch-native problem (autodiff "
+                "or tensor eval_* methods); fill-callback (compat) problems "
+                "run the host loops: drop use_fused_loop")
         if algo == "ip":
             from .ip_fused import fused_ip_optimize
             self._result, self._fused_state = fused_ip_optimize(

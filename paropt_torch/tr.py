@@ -1272,8 +1272,8 @@ def _inner_solve(model: ModelFns, opts: FusedIPOptions, R: _Run, x0,
     """One inner IP solve of the TR step (steering or QP); in a batch the
     ``frozen`` instances (already converged) start it converged."""
     pa = params._replace(
-        **{f: (None if f in ("Aw_cols", "Aw_vals", "eig_M", "eig_h")
-               else 0) for f in QPParams._fields})
+        **{f: (None if f in ("Aw_cols", "Aw_vals") else 0)
+           for f in QPParams._fields})
     ca = None if compact is None else 0
     st0 = R.call(functools.partial(_fused_init, model, opts),
                  (0, da, pa, None, ca), x0, d, params, None, compact)
@@ -1468,8 +1468,9 @@ class FusedTR:
         ``tr_max_iterations`` more outer iterations from it (paropt_tpu's
         jitted loop stops at that absolute count; ROADMAP queue 3).  The
         problem's ``write_output(it, x)`` hook fires every
-        ``tr_write_output_frequency`` outer iterations; checkpoints are not
-        ported yet."""
+        ``tr_write_output_frequency`` outer iterations, and
+        ``checkpoint_path`` gets the full state at the same cadence
+        (`utils.checkpoint`)."""
         from .utils.chunked import make_write_output_hook, user_write_output
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,

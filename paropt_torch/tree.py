@@ -25,8 +25,12 @@ def static_field(default=dataclasses.MISSING):
 
 def tmap(fn, first, *rest):
     """Apply ``fn`` field by field to the tensors of one or more dataclasses
-    of the same type (nested dataclasses recurse; None stays None; static
-    fields come from ``first``)."""
+    of the same type (nested dataclasses and NamedTuples recurse; None
+    stays None; static fields come from ``first``)."""
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(
+            None if a is None else tmap(fn, a, *(o[i] for o in rest))
+            for i, a in enumerate(first)))
     if not dataclasses.is_dataclass(first):
         return fn(first, *rest)
     out = {}

@@ -5,7 +5,8 @@ The JAX package bounds each device execution of a fused loop in chunks and
 fires the user's ``write_output`` hook at chunk boundaries.  The port's fused
 loops are host loops, so the hook is called after every outer iteration and
 fires at the first iteration at or past each multiple of
-``write_output_frequency``.  Checkpoints are not ported yet.
+``write_output_frequency``; a ``checkpoint_path`` gets the full solver state
+at the same cadence (`utils.checkpoint.save_state`).
 """
 
 from __future__ import annotations
@@ -30,14 +31,13 @@ def user_write_output(problem):
 def make_write_output_hook(write_output, freq, get_x=lambda st: st.xk,
                            checkpoint_path=None):
     """An ``on_chunk(state)`` callback that fires ``write_output(it, x)``
-    at the first call at or past each multiple of ``freq`` outer
-    iterations.  Returns None when ``freq`` <= 0 or there is nothing to
-    fire.  ``checkpoint_path`` raises NotImplementedError: checkpoints are
-    not ported yet."""
-    if checkpoint_path is not None:
-        raise NotImplementedError("checkpoints are not ported yet")
-    if freq is None or int(freq) <= 0 or write_output is None:
+    and writes the full state to ``checkpoint_path`` (`save_state`) at the
+    first call at or past each multiple of ``freq`` outer iterations.
+    Returns None when ``freq`` <= 0 or there is nothing to fire."""
+    if freq is None or int(freq) <= 0:
         return None
+    if write_output is None and checkpoint_path is None:
+        return None          # nothing to fire: no read of state.k
     freq = int(freq)
     next_k = [0]
 
@@ -46,6 +46,10 @@ def make_write_output_hook(write_output, freq, get_x=lambda st: st.xk,
         if k < next_k[0]:
             return
         next_k[0] = (k // freq + 1) * freq
-        write_output(k, get_x(state))
+        if write_output is not None:
+            write_output(k, get_x(state))
+        if checkpoint_path is not None:
+            from .checkpoint import save_state
+            save_state(checkpoint_path, state)
 
     return hook

@@ -19,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from paropt_torch import (Optimizer, convert, dtypes, eig, ip, ip_fused,
-                          problem)
+from paropt_torch import (Optimizer, compat, convert, dtypes, eig, ip,
+                          ip_fused, problem)
+from paropt_torch.drivers import callbacks
+from paropt_torch.reduced import ReducedProblem
 from paropt_torch.eig_fused import FusedEigenTR
 from paropt_torch.models import (analytic, brachistochrone, cartpole, cops,
                                  fem_frequency, fem_topology, fem_topology3d,
@@ -76,7 +78,26 @@ CONSTRUCTORS = {
     "zero_vars": (kkt, lambda: kkt.zero_vars(8, 1, 2)),
     "convert.to_tensor": (convert, lambda: convert.to_tensor(np.zeros(3))),
     "convert.ip_vars": (convert, lambda: convert.ip_vars(_ip_fields())),
+    "compat.Problem": (callbacks, lambda: _CompatBox()),
+    "compat.Problem(rowp, cols)": (problem, lambda: _CompatBox(csr=True)),
+    "FunctionProblem": (callbacks, lambda: callbacks.FunctionProblem(
+        [0.5, 0.5], [0.0, 0.0], [1.0, 1.0], lambda x: float(x @ x))),
+    "ReducedProblem": (analytic, lambda: ReducedProblem(
+        analytic.Rosenbrock(), [0], [1.0])),
 }
+
+
+class _CompatBox(compat.Problem):
+    """A reference-style problem given no device (a CSR row with csr)."""
+
+    def __init__(self, csr=False):
+        kw = dict(rowp=[0, 2], cols=[0, 1]) if csr else {}
+        super().__init__(None, nvars=2, ncon=0, **kw)
+
+    def getVarsAndBounds(self, x, lb, ub):
+        x[:] = 0.5
+        lb[:] = 0.0
+        ub[:] = 1.0
 
 
 def _build(make):
@@ -360,3 +381,24 @@ def test_csr_problem_stays_on_the_device():
     aw = _on_meta_default(lambda: problem.SparseJacobian(
         4, prob._pad_cols, prob._padded_vals(data), layout=prob._pad_layout))
     assert aw.vals.device.type == "cpu"
+
+
+def test_restore_state_puts_leaves_on_the_template_device(tmp_path):
+    """Each restored leaf takes the template's device: a meta template
+    gives meta leaves, and with the default device set to meta a CPU
+    template still gives CPU leaves (no tensor made off its device)."""
+    from paropt_torch.utils.checkpoint import restore_state, save_state
+    path = str(tmp_path / "qn.pt")
+    q = qn.qn_init(2, 8, dtype=torch.float64, device="cpu")
+    save_state(path, q)
+    meta = dataclasses.replace(
+        q, **{f.name: getattr(q, f.name).to("meta")
+              for f in dataclasses.fields(q)
+              if isinstance(getattr(q, f.name), torch.Tensor)})
+    back = restore_state(path, meta)
+    assert all(getattr(back, n).device.type == "meta"
+               for n in ("buf", "SS", "SY", "count", "b0", "z0"))
+    back = _on_meta_default(lambda: restore_state(path, q))
+    assert all(getattr(back, n).device.type == "cpu"
+               for n in ("buf", "SS", "SY", "count", "b0", "z0"))
+    assert torch.equal(back.buf, q.buf)

@@ -15,7 +15,8 @@ paropt_tpu.eig_fused on the same numpy inputs, in float64:
   ``eig_row_model`` values: equal niter and subiters, fobj to 1e-9
   relative, x to 1e-7;
 - the port's own: the non-finite fail-stop, the warm-start basis riding
-  the state, the write-output cadence and the unported entry points."""
+  the state, the write-output and checkpoint cadence, and the chunked
+  solve, which is not ported."""
 
 import dataclasses
 import warnings
@@ -212,7 +213,7 @@ def test_non_finite_trial_is_rejected_and_shrinks_the_radius():
                                     tf._to.tr_min)
 
 
-def test_write_output_cadence_and_unported_paths():
+def test_write_output_cadence_and_unported_paths(tmp_path):
     calls = []
 
     class Recorded(TTiny):
@@ -235,10 +236,17 @@ def test_write_output_cadence_and_unported_paths():
     assert res2["niter"] == 9
     with pytest.raises(NotImplementedError, match="chunked"):
         tf.solve(chunk=2)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        tf.solve(checkpoint_path="state.pt")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tf.solve_batched(torch.zeros((2, 8), dtype=F64))
+    # checkpoints and solve_batched are ported (tests/
+    # test_torch_checkpoint.py and tests/test_torch_eig_batched.py hold
+    # them): the full state at the cadence, and two starts at once
+    ckpt = str(tmp_path / "state.pt")
+    _, st2 = tf.solve(state0=state, checkpoint_path=ckpt)
+    from paropt_torch.utils.checkpoint import restore_state
+    assert int(restore_state(ckpt, st2).k) == 9
+    resb, stb = tf.solve_batched(torch.stack([tf._state0.xk] * 2))
+    assert resb["niter"].tolist() == [2, 2] and stb.xk.shape == (2, 8)
+    with pytest.raises(NotImplementedError, match="chunked"):
+        tf.solve_batched(torch.zeros((2, 8), dtype=F64), chunk=2)
     with pytest.raises(ValueError, match="eig_row_model"):
         tef.FusedEigenTR(TTiny(), dict(_opts()), eig_row_model="cubic")
     # the warm-start opt-in is explicit: no V0 parameter, no basis

@@ -307,7 +307,7 @@ def test_converged_loop_skips_the_inner_solve():
     assert int(again.subiters) == int(ts.subiters)
 
 
-def test_write_output_cadence_and_unported_paths():
+def test_write_output_cadence_and_unported_paths(tmp_path):
     calls = []
 
     class Recorded(TFEM):
@@ -319,8 +319,11 @@ def test_write_output_cadence_and_unported_paths():
                                       write_output_frequency=5))
     solver.solve()
     assert calls == [1, 5, 10]
-    with pytest.raises(NotImplementedError):
-        solver.solve(checkpoint_path="state.pt")
+    # checkpoints are ported: the full state at the same cadence
+    ckpt = str(tmp_path / "state.pt")
+    _, state = solver.solve(checkpoint_path=ckpt)
+    from paropt_torch.utils.checkpoint import restore_state
+    assert int(restore_state(ckpt, state).k) == 10
     # solve_batched is ported; its chunked form is not
     with pytest.raises(NotImplementedError, match="chunked"):
         solver.solve_batched(None, chunk=3)

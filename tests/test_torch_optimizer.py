@@ -115,7 +115,7 @@ def test_ip_route_matches_jax_fused_ip_optimize():
     assert z.shape == (1,) and zw.shape == (512,)
 
 
-def test_fused_ip_optimize_write_output_cadence():
+def test_fused_ip_optimize_write_output_cadence(tmp_path):
     calls = []
 
     class Recorded(TTopology):
@@ -127,12 +127,16 @@ def test_fused_ip_optimize_write_output_cadence():
         {"write_output_frequency": 10, "abs_res_tol": 1e-5})
     assert res["converged"]
     assert calls == [1] + list(range(10, res["niter"] + 1, 10))
-    with pytest.raises(NotImplementedError):
-        tip.fused_ip_optimize(TTopology(n=64, block=8, dtype=F64,
-                                        device="cpu"),
-                              {"ip_checkpoint_file": "ip.pt"})
-    with pytest.raises(NotImplementedError):
-        make_write_output_hook(print, 10, checkpoint_path="state.pt")
+    # checkpoints are ported: ip_checkpoint_file gets the full state at
+    # the same cadence (tests/test_torch_checkpoint.py resumes from it)
+    ckpt = str(tmp_path / "ip.pt")
+    res, state = tip.fused_ip_optimize(
+        TTopology(n=64, block=8, dtype=F64, device="cpu"),
+        {"ip_checkpoint_file": ckpt, "write_output_frequency": 10})
+    from paropt_torch.utils.checkpoint import restore_state
+    assert int(restore_state(ckpt, state).k) == 10 * (res["niter"] // 10)
+    hook = make_write_output_hook(None, 10, checkpoint_path=ckpt)
+    assert hook is not None
     assert make_write_output_hook(print, 0) is None
 
 

@@ -363,7 +363,7 @@ def test_tf32_turned_off():
          torch.backends.cudnn.allow_tf32) = prev
 
 
-def test_write_output_cadence_and_unported_paths():
+def test_write_output_cadence_and_unported_paths(tmp_path):
     calls = []
 
     class Recorded(TTopology):
@@ -377,8 +377,11 @@ def test_write_output_cadence_and_unported_paths():
     res, _ = fus.solve()
     assert res["niter"] == 12
     assert calls == [(1, (64,)), (5, (64,)), (10, (64,))]
-    with pytest.raises(NotImplementedError):
-        fus.solve(checkpoint_path="state.pt")
+    # checkpoints are ported: the full state at the same cadence
+    ckpt = str(tmp_path / "state.pt")
+    _, state = fus.solve(checkpoint_path=ckpt)
+    from paropt_torch.utils.checkpoint import restore_state
+    assert int(restore_state(ckpt, state).k) == 10
     # solve_batched is ported; its chunked form is not
     with pytest.raises(NotImplementedError, match="chunked"):
         fus.solve_batched(torch.zeros((2, 64), dtype=F64), chunk=4)
