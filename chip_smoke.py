@@ -324,6 +324,32 @@ The kernels line also carries each kernel's launches in phases 32
 (eig_batched_launches), 33 (eig_batched_f64_launches, the card's batched
 solves), 34 (ckpt_ip_launches, ckpt_host_ip_launches) and 35
 (compat_launches, compat_native_launches, function_launches).
+
+Phase 36 runs the main path on sharded state (DTensor over a device mesh,
+`paropt_torch.parallel`), in child processes of
+``python -m paropt_torch.parallel.worker`` (MASTER_ADDR 127.0.0.1, a free
+port, the rank environment set), so that phases 1-35 run with no process
+group; a child that fails fails the script:
+
+36. (a) world size 1 over NCCL, `design_mesh("cuda")`, the state placed by
+   `shard_tree`: phase 4's solve (SyntheticTopology(2^20), float32, L-BFGS
+   msub 10, abs_res_tol 1e-6, no refinement).  It must converge below
+   1e-6 in phase 4's iterations with fobj within 1e-6 relative and launch
+   each kernel as often as phase 4; it prints max |dx| against phase 4,
+   seconds and host reads per step beside phase 4's (the cost of
+   DTensor's dispatch) and peak memory.  The same child checks the redistributions a solve makes,
+   each kernel's sharded route against its unsharded launch (bit for bit)
+   and a DCP checkpoint of the state after 3 steps: written, restored bit
+   for bit with its placements, and one identical step from each; its
+   size and write time are printed.  (b) With two or more cards:
+   min(4, cards) NCCL ranks run (a)'s solve, held to (a)'s checks and to
+   (a).  With one card, no run of several ranks is made: NCCL refuses two
+   ranks on one device ("Duplicate GPU detected"), and with gloo the
+   all-gather of CUDA tensors that DTensor's redistribution calls ends
+   the process (SIGSEGV) on the card machine's PyTorch 2.11, so
+   multi-rank on the card waits for a machine with two or more cards.
+   The kernels line carries each kernel's launches in (a)
+   (sharded_launches).
 Only torch and numpy are used.
 """
 
@@ -362,6 +388,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 SPIN_CYCLES = 100_000_000    # ~50 ms at the H100's clock
 CSR_N = 8188                 # phase 29's design variables
+SLICE = {}                   # phase 4's wall seconds, iterations, reads
 
 
 def log(msg):
@@ -700,6 +727,7 @@ def phase_slice(torch):
         f"{fused.syncs.count / max(iters, 1):.2f} host syncs/step, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[slice] kernel launches in the solve: {launches}")
+    SLICE.update(wall=wall, iters=iters, reads=fused.syncs.count)
     check(bool(state.converged), f"solve did not converge (res {res:.3e})")
     check(res < 1e-6, f"res_norm {res:.3e} >= 1e-6")
     check(torch.isfinite(state.fobj).item(), "non-finite objective")
@@ -3202,6 +3230,121 @@ def phase_surface(torch):
     return compat_launches, native_launches, fn_launches
 
 
+def _ranks(nproc, out, *args, backend=None):
+    """Run ``nproc`` ranks of paropt_torch.parallel.worker on the card(s)
+    (a failure raises, and fails the script); each rank's JSON."""
+    from paropt_torch.parallel.worker import spawn
+    extra = ["--backend", backend] if backend else []
+    spawn(nproc, ["--device", "cuda", "--out", out, *extra, *args],
+          timeout=300, cwd=str(ROOT))
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(nproc)]
+
+
+def _sharded_ip(torch, tag, ranks, n, dtype):
+    """Print one sharded solve's figures (rank 0's); returns them."""
+    ip = ranks[0]["ip"]
+    last = ip["trajectory"][-1]
+    iters = last["k"]
+    for r in ranks[1:]:
+        check(r["ip"]["trajectory"] == ip["trajectory"],
+              f"{tag}: rank {r['rank']} saw another trajectory")
+    peak = ip["peak_bytes"] or 0
+    log(f"[sharded] {tag}: n={n} {dtype} ranks={len(ranks)} "
+        f"mesh={ranks[0]['mesh']} backend={ranks[0]['backend']}: "
+        f"converged={ip['converged']} iters={iters} "
+        f"fobj={last['fobj']:.9e} res={last['res']:.3e}; "
+        f"{ip['seconds'] / iters:.4f} s and {ip['reads'] / iters:.2f} host "
+        f"reads per step; {ip['collectives'] / iters:.1f} collectives and "
+        f"{ip['collective_bytes'] / iters / 2**20:.2f} MiB of their inputs "
+        f"per step on rank 0; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {ip['launches']}")
+    check(ip["converged"] and last["res"] < 1e-6,
+          f"{tag}: the sharded solve did not converge")
+    return ip, iters, last["fobj"]
+
+
+def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
+    """36: the main path on sharded state; returns (a)'s launches."""
+    import numpy as np
+    import shutil
+    t_phase = time.perf_counter()
+    base = BUILD / "phase36"
+    shutil.rmtree(base, ignore_errors=True)
+    main_args = ["--dtype", "float32", "--n", N_MAIN, "--msub", MSUB,
+                 "--tol", 1e-6, "--steps", 0, "--refine", 0]
+    # (a) one rank, NCCL
+    out = base / "a"
+    ranks = _ranks(1, out, "--cases", "coll,ops,ip,ckpt", *main_args)
+    r0 = ranks[0]
+    ip, iters, fobj = _sharded_ip(torch, "(a)", ranks, N_MAIN, "float32")
+    x = np.load(out / "ip_x.npy")
+    dx = float(np.max(np.abs(x - ip_x.cpu().numpy())))
+    step_s, step_4 = ip["seconds"] / iters, SLICE["wall"] / SLICE["iters"]
+    log(f"[sharded] (a) against phase 4: iters {iters} vs {ip_iters}, fobj "
+        f"{fobj:.9e} vs {ip_fobj:.9e}, max |dx| {dx:.3e}; {step_s:.4f} vs "
+        f"{step_4:.4f} s per step ({step_s / step_4:.2f}x), "
+        f"{ip['reads'] / iters:.2f} vs {SLICE['reads'] / SLICE['iters']:.2f}"
+        f" host reads per step")
+    check(iters == ip_iters, f"(a) took {iters} steps, phase 4 {ip_iters}")
+    check(abs(fobj - ip_fobj) <= 1e-6 * abs(ip_fobj), "(a) fobj differs")
+    check(ip["launches"] == ip_launches, f"(a) launched {ip['launches']}, "
+          f"phase 4 {ip_launches}")
+    log(f"[sharded] (a) redistributions, max error: {r0['coll']}")
+    check(all(v == 0.0 for k, v in r0["coll"].items()
+              if k != "case_seconds"), "a redistribution changed a value")
+    log(f"[sharded] (a) each kernel's sharded route against its unsharded "
+        f"launch, max |diff|: {r0['ops']['maxdiff']}; launches "
+        f"{r0['ops']['launches']}")
+    check(all(v == 0.0 for v in r0["ops"]["maxdiff"].values()),
+          "a sharded kernel route differs from its unsharded launch")
+    check(all(v == 1 for v in r0["ops"]["launches"].values()),
+          "a sharded kernel route did not launch its kernel once")
+    ck = r0["ckpt"]
+    log(f"[sharded] (a) DCP checkpoint of the state after 3 steps: "
+        f"{ck['bytes'] / 2**20:.1f} MiB written in {ck['write_seconds']:.3f}"
+        f" s; restored max |diff| {ck['maxdiff']}, placements kept "
+        f"{ck['placements_kept']}, next step max |diff| "
+        f"{ck['step_maxdiff']}")
+    check(ck["maxdiff"] == 0.0 and ck["placements_kept"]
+          and ck["step_maxdiff"] == 0.0, "the DCP round trip is not exact")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        # (b) one rank per card, NCCL
+        P = min(4, count)
+        out = base / "b"
+        ranks = _ranks(P, out, "--cases", "coll,ops,ip", *main_args)
+        ip_b, iters_b, fobj_b = _sharded_ip(torch, "(b)", ranks, N_MAIN,
+                                            "float32")
+        ops = ranks[0]["ops"]
+        log(f"[sharded] (b) redistributions, max error: {ranks[0]['coll']};"
+            f" each kernel's sharded route against its unsharded launch, "
+            f"max |diff|: {ops['maxdiff']}; launches {ops['launches']}")
+        check(all(v == 0.0 for k, v in ranks[0]["coll"].items()
+                  if k != "case_seconds"), "(b): a redistribution failed")
+        for k in ("buf", "yx", "yw", "gx", "gw"):
+            check(ops["maxdiff"][k] == 0.0, f"(b): sharded {k} differs")
+        for k in ("dots", "gram"):
+            check(ops["maxdiff"][k] <= RTOL["float32"] * ops["scale"][k],
+                  f"(b): sharded {k} differs beyond the f32 tolerance")
+        check(all(v == 1 for v in ops["launches"].values()),
+              "(b): a sharded kernel route did not launch once on rank 0")
+        for name, count in ip_b["launches"].items():
+            check(count > 0, f"(b): kernel {name} was not launched")
+        dx = float(np.max(np.abs(np.load(out / "ip_x.npy") - x)))
+        log(f"[sharded] (b) against (a): iters {iters_b} vs {iters}, max "
+            f"|dx| {dx:.3e}")
+        check(iters_b == iters, "(b) took another iteration count")
+        check(abs(fobj_b - fobj) <= 1e-6 * abs(fobj), "(b) fobj differs")
+    else:
+        log("[sharded] (b) not run: one card.  Two ranks cannot share it: "
+            "NCCL refuses two ranks on one device, and gloo's all-gather "
+            "of CUDA tensors, which DTensor's redistribution calls, ends "
+            "the process on this PyTorch (PERF.md, PR 12)")
+    log(f"[sharded] phase 36 took {time.perf_counter() - t_phase:.2f} s")
+    return ip["launches"]
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
@@ -3296,6 +3439,9 @@ def main():
     compat_launches, compat_native_launches, function_launches = \
         phase_surface(torch)
     stamp("35")
+    sharded_launches = phase_sharded(torch, launches, ip_iters, ip_fobj,
+                                     ip_x)
+    stamp("36")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -3320,6 +3466,7 @@ def main():
                      "compat_native_launches":
                          compat_native_launches[name],
                      "function_launches": function_launches[name],
+                     "sharded_launches": sharded_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -38,6 +38,7 @@ from .ip import HostSyncs
 from .ip_fused import _Run
 from .ops import qn as qnmod
 from .ops.kkt import ProblemData
+from .parallel.sharding import refuse_sharded
 from .tr import (FusedTROptions, QPParams, _add_row, _fused_ip_options,
                  _inner_solve, _qp_Bp, _tr_kkt, _tr_penalties, _tr_radius,
                  _tr_rho, _viol, make_qp_model)
@@ -425,6 +426,7 @@ class FusedEigenTR:
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
                                       checkpoint_path=checkpoint_path)
+        refuse_sharded("FusedEigenTR", state0)
         state = state0 if state0 is not None else self._state0
         for _ in range(self._to.max_iterations):
             state = self._step(state)

@@ -34,8 +34,10 @@ step (the plain step at the adapted μ), as the JAX package does there.
 Checkpoints (``write_solution_file``, ``read_solution_file``,
 ``optimize(checkpoint=...)``) use the JAX package's npz format, the `IPVars`
 fields and ``mu``, so a file that either package writes resumes in the
-other.  Sharded state (and the JAX package's Orbax directory checkpoints of
-it) is not ported yet and raises NotImplementedError naming ROADMAP item 14.
+other.  A design vector sharded over a device mesh (a DTensor, placed by
+`parallel.sharding`) runs the same loop, and its checkpoints are
+``torch.distributed.checkpoint`` directories where the JAX package writes
+Orbax ones.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
 from .ops.veclib import dot, matmul, multi_norm, norm
+from .parallel.sharding import (is_sharded, place_like, spmd,
+                                tree_is_sharded)
 from .tree import tmap
 from .utils.logging import IPLogger
 from .utils.options import OptionRegistry, make_options
@@ -73,31 +77,47 @@ LS_SHORT_STEP = 32
 class HostSyncs:
     """Reads device scalars on the host and counts the reads: each one
     waits for the device.  ``bytes_to_host`` and ``bytes_to_device`` add up
-    the arrays moved by `array` and `upload`."""
+    the arrays moved by `array` and `upload`.
+
+    A DTensor (sharded state) is read whole: a replicated one from its
+    local copy, a sharded or partial one after ``full_tensor()``, whose
+    gathered bytes ``bytes_gathered`` adds up."""
 
     def __init__(self):
         self.count = 0
         self.bytes_to_host = 0
         self.bytes_to_device = 0
+        self.bytes_gathered = 0
+
+    def _whole(self, t):
+        if not is_sharded(t):
+            return t
+        from torch.distributed.tensor import Replicate
+        if all(isinstance(p, Replicate) for p in t.placements):
+            return t.to_local()
+        self.bytes_gathered += t.numel() * t.element_size()
+        return t.full_tensor()
 
     def __call__(self, flag: torch.Tensor) -> bool:
         self.count += 1
-        return bool(flag)
+        return bool(self._whole(flag))
 
     def value(self, t) -> float:
         """One 0-d tensor as a Python float."""
         self.count += 1
-        return float(t)
+        return float(self._whole(t))
 
     def values(self, *ts) -> list:
         """Several 0-d tensors as Python floats, read in one transfer (each
         widened to float64 first, which keeps its value exactly)."""
         self.count += 1
-        return torch.stack([t.to(torch.float64) for t in ts]).tolist()
+        return torch.stack([self._whole(t).to(torch.float64)
+                            for t in ts]).tolist()
 
     def array(self, t) -> np.ndarray:
         """A tensor as a numpy array."""
         self.count += 1
+        t = self._whole(t)
         if t.device.type != "cpu":
             self.bytes_to_host += t.numel() * t.element_size()
         return t.detach().cpu().numpy()
@@ -390,12 +410,9 @@ def _trial_point(v: IPVars, d: ProblemData, p: IPVars, alpha,
             clip(v.sw + alpha * p.sw), clip(v.tw + alpha * p.tw))
 
 
-def _is_sharded(t) -> bool:
-    """True for a DTensor (state distributed over a device mesh)."""
-    if not torch.distributed.is_available():
-        return False
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
+def _own_state(solver, *_):
+    """The state an `InteriorPoint` method may hold sharded (`spmd`)."""
+    return solver.vars
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +430,7 @@ class InteriorPoint:
     Constructing a solver turns TF32 off for float32 matrix products and
     convolutions, as `FusedIP` does."""
 
+    @spmd
     def __init__(self, problem, options: Optional[Any] = None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -554,13 +572,14 @@ class InteriorPoint:
         """`initAndCheckDesignAndBounds` (`ParOptInteriorPoint.cpp:4277+`)."""
         o = self.options
         x, lb, ub = self.problem.get_vars_and_bounds()
-        if _is_sharded(x):
-            raise NotImplementedError(
-                "sharded solver state is not ported yet (ROADMAP queue 1 "
-                "item 14)")
         self.device = (x.device if isinstance(x, torch.Tensor)
                        else resolve_device(None))
         x, lb, ub = self._tensor(x), self._tensor(lb), self._tensor(ub)
+        if is_sharded(x):
+            # a design vector sharded over a device mesh: the bounds take
+            # its placements, and every n-sized array follows them
+            lb, ub = (b if is_sharded(b) else place_like(b, x)
+                      for b in (lb, ub))
         mbv = o["max_bound_value"]
         self.lb_mask = (lb > -mbv).to(self.dtype)
         self.ub_mask = (ub < mbv).to(self.dtype)
@@ -854,6 +873,7 @@ class InteriorPoint:
                         self._scalar(self.rho_penalty))
         return self.syncs.value(m), (xt, st, tt, swt, twt, fobj, c, cw)
 
+    @spmd(probe=_own_state)
     def check_merit_func_gradient(self, xpt=None, dh: float = 1e-6, p=None):
         """FD verification of the merit directional derivative used by the
         line search (`checkMeritFuncGradient`,
@@ -1223,23 +1243,41 @@ class InteriorPoint:
 
     # -- checkpointing (`writeSolutionFile`/`readSolutionFile`) -------------
 
+    def _state_is_sharded(self) -> bool:
+        """True when some state leaf is distributed over a device mesh."""
+        return tree_is_sharded(self.vars)
+
+    @spmd(probe=_own_state)
     def write_solution_file(self, path: str) -> None:
         """The primal-dual point and the barrier parameter as an npz file
         (paropt_tpu's format; ``np.savez`` adds ``.npz`` to a bare name).
-        Each field is one counted read of the device."""
+        Each field is one counted read of the device.  Sharded state goes
+        to a ``torch.distributed.checkpoint`` directory instead (each rank
+        writes its shards, the role of the reference's MPI-IO collective
+        write and of paropt_tpu's Orbax directory); every rank calls."""
+        if self._state_is_sharded():
+            from .utils.checkpoint import save_state
+            save_state(path, {"vars": self.vars,
+                              "mu": self._scalar(self.mu)})
+            return
         arrays = {f.name: self.syncs.array(getattr(self.vars, f.name))
                   for f in dataclasses.fields(IPVars)}
         arrays["mu"] = np.asarray(self.mu)
         np.savez(path, **arrays)
 
+    @spmd(probe=_own_state)
     def read_solution_file(self, path: str) -> None:
         """Resume from a file of `write_solution_file` (or paropt_tpu's):
         the point and μ are replaced; the QN approximation restarts, as in
-        the reference."""
+        the reference.  A directory is a sharded checkpoint: each leaf is
+        restored with the placements of the solver's current state."""
         if os.path.isdir(path):
-            raise NotImplementedError(
-                "Orbax checkpoints of sharded state are not ported yet "
-                "(ROADMAP queue 1 item 14)")
+            from .utils.checkpoint import restore_state
+            got = restore_state(path, {"vars": self.vars,
+                                       "mu": self._scalar(self.mu)})
+            self.vars = got["vars"]
+            self.mu = self.syncs.value(got["mu"])
+            return
         if not path.endswith(".npz"):
             path = path + ".npz"
         with np.load(path) as dat:
@@ -1281,12 +1319,14 @@ class InteriorPoint:
     def set_barrier_parameter(self, mu):
         self.mu = float(mu)
 
+    @spmd(probe=_own_state)
     def get_complementarity(self):
         return self.syncs.value(
             kkt.average_complementarity(self.vars, self._make_data()))
 
     # -- the major iteration loop -------------------------------------------
 
+    @spmd(probe=_own_state)
     def optimize(self, checkpoint: Optional[str] = None) -> Dict[str, Any]:
         """Run the optimization (`ParOptInteriorPoint::optimize`,
         `ParOptInteriorPoint.cpp:4399-5333`).  Returns a result dict.

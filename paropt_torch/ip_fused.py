@@ -38,6 +38,7 @@ from .ops import kkt
 from .ops import qn as qnmod
 from .ops.kkt import IPVars, ProblemData
 from .ops.veclib import dot, multi_norm
+from .parallel.sharding import spmd
 from .tree import bvmap, pytree, tmap
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
@@ -161,17 +162,20 @@ class FusedIP:
         self.dtype = resolve_dtype(dtype)
         self.syncs = HostSyncs()
 
+    @spmd
     def init(self, x0, data: ProblemData, model_params,
              qn_state: Optional[qnmod.QNState], compact) -> FusedState:
         """Initialize state (bounds clipping, multiplier start strategy)."""
         return _fused_init(self.model, self.opts, x0, data, model_params,
                            qn_state, compact)
 
+    @spmd
     def step(self, state: FusedState, data: ProblemData, model_params,
              compact) -> FusedState:
         return _fused_step(self.model, self.opts, state, data, model_params,
                            compact, host=self.syncs)
 
+    @spmd
     def solve(self, x0, data: ProblemData, model_params,
               qn_state: Optional[qnmod.QNState] = None, compact=None,
               max_iters: Optional[int] = None, on_chunk=None,
@@ -976,9 +980,17 @@ def model_from_problem(problem) -> ModelFns:
 
 def data_template_from_problem(problem, penalty_gamma: float = 1000.0,
                                max_bound_value: float = 1e20,
-                               dtype=None) -> tuple[ProblemData, Any]:
+                               dtype=None, mesh=None
+                               ) -> tuple[ProblemData, Any]:
     """The ProblemData template (bounds, masks, penalties, sparse-Jacobian
-    pattern) + x0 for a `Problem`, on the device of its x0."""
+    pattern) + x0 for a `Problem`, on the device of its x0; with ``mesh``
+    (`parallel.sharding`) both placed on it by `shard_tree`'s rule."""
+    if mesh is not None:
+        from .parallel.sharding import shard_tree
+        d, x0 = data_template_from_problem(problem, penalty_gamma,
+                                           max_bound_value, dtype)
+        return (shard_tree(d, mesh, problem.nvars),
+                shard_tree(x0, mesh, problem.nvars))
     dtype = resolve_dtype(dtype)
     x0, lb, ub = problem.get_vars_and_bounds()
     dev = x0.device

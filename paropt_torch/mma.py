@@ -34,6 +34,7 @@ from .ip import HostSyncs, InteriorPoint
 from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
                        _fused_solve_loop, _Run)
 from .ops.kkt import ProblemData
+from .parallel.sharding import spmd
 from .problem import Problem
 from .tr import _viol
 from .tree import pytree, tmap
@@ -806,6 +807,7 @@ class FusedMMA:
             _fused_mma_step, user_model, mma_model, ip_opts, mo, lbv, ubv,
             d_tmpl, (), host=self.syncs)
 
+    @spmd
     def solve(self, state0: Optional[FusedMMAState] = None,
               checkpoint_path=None):
         """Run the outer loop: a host loop over outer iterations that reads
@@ -830,7 +832,7 @@ class FusedMMA:
         # state.fobj is the value at the point the LAST step evaluated;
         # when the loop exits at the iteration cap, x has advanced once
         fobj_final, _, _ = self._ev((), state.x)
-        result = {"x": state.x, "fobj": float(fobj_final),
+        result = {"x": state.x, "fobj": self.syncs.value(fobj_final),
                   "converged": bool(state.converged),
                   "stalled": bool(state.stalled), "niter": int(state.k),
                   "infeas": float(state.infeas), "l1": float(state.l1),

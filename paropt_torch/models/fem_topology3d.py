@@ -45,6 +45,7 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
+from ..parallel.sharding import refuse_sharded
 from ..problem import Problem, SparseJacobian
 from .fem_topology import _Compliance, _interleave, _interleave_t
 
@@ -516,12 +517,15 @@ class FEMTopology3D(Problem):
 
     # -- Problem surface --------------------------------------------------
     def objective(self, x):
+        refuse_sharded("FEMTopology3D", x)
         return self.c_scale * self._compliance(self._filter(x))
 
     def constraints(self, x):
+        refuse_sharded("FEMTopology3D", x)
         return (self.volume_fraction - torch.mean(x)).reshape(1)
 
     def sparse_constraints(self, x):
+        refuse_sharded("FEMTopology3D", x)
         return self.region_cap - torch.mean(
             x.reshape(self.nwcon, self.region), dim=1)
 
@@ -595,13 +599,16 @@ class DMOFEMTopology3D(Problem):
 
     # -- Problem surface --------------------------------------------------
     def objective(self, x):
+        refuse_sharded("DMOFEMTopology3D", x)
         return self.c_scale * self._compliance(x)
 
     def constraints(self, x):
+        refuse_sharded("DMOFEMTopology3D", x)
         mass = torch.mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
 
     def sparse_constraints(self, x):
+        refuse_sharded("DMOFEMTopology3D", x)
         return 1.0 - torch.sum(x.reshape(self.ne, self.nmat), dim=1)
 
     def sparse_jacobian(self, x):

@@ -21,6 +21,20 @@ instance-axis form, so ``torch.func.vmap`` over a solver step reaches the
 kernels with one launch per call whatever the instance count, and no
 batched tensor's ``data_ptr`` is ever read.
 
+On a DTensor (state sharded over a device mesh, `parallel.sharding`) each
+op's DTensor sharding rule (`_register_sharding`, at the end) runs it on
+every rank's local shard: on the card each rank launches the kernel on its
+shard, and the plain version never stands in (the JAX package turns its
+Pallas kernels off on more than one device).  ``qn_roll_update`` works on
+column shards of the ring buffer and all-reduces its [2m, 2] dots.  The
+quasi-definite kernels sum over the k rows of the [k, nwcon] view, and a
+contiguous shard of x is a band of those rows: the rule moves their
+operands to column shards (each rank then owns whole constraints; one
+all-to-all of the K·n right-hand sides and of Dinv), launches the
+unchanged kernel there, and the wrapper moves yx back to row shards,
+gathers yw and all-reduces phi_gram's Gram matrix.  So the mesh size must
+divide both k and nwcon (`check_split`).
+
 The kernels live in ``paropt_torch/csrc`` (``qn_roll.cu``,
 ``quasi_def.cu``) and are built by ``_build.load_library`` on first use.
 """
@@ -31,11 +45,14 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..parallel.sharding import is_sharded, mesh_size
+
 __all__ = ["LAUNCHES", "BATCHED_LAUNCHES", "reset_launches",
            "qn_roll_update", "qn_roll_update_plain", "qn_roll_update_batched",
            "quasi_def_apply", "quasi_def_apply_plain",
            "quasi_def_apply_batched", "phi_gram", "phi_gram_plain",
-           "phi_gram_batched", "phi_gram_plan", "phi_gram_tile"]
+           "phi_gram_batched", "phi_gram_plan", "phi_gram_tile",
+           "check_split"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"qn_roll_update": 0, "quasi_def_apply": 0, "phi_gram": 0}
@@ -174,7 +191,8 @@ def qn_roll_update(buf: torch.Tensor, s: torch.Tensor, y: torch.Tensor,
     _require(upd.dim() == 0 and upd.dtype == torch.bool,
              "upd must be a 0-d bool tensor")
     _route(buf, s, y, upd)
-    return _qn_roll_op(buf, s, y, upd)
+    out, dots = _qn_roll_op(buf, s, y, upd)
+    return out, _placed_like(dots, None)
 
 
 @torch.library.custom_op(
@@ -200,6 +218,12 @@ def _qn_roll_op(buf, s, y, upd):
             *(t.data_ptr() for t in (buf, s_q, y_q, upd, out, partials, dots)),
             rows // 2, n, nblocks)
     return out, dots
+
+
+@_qn_roll_op.register_fake
+def _qn_roll_fake(buf, s, y, upd):
+    return (torch.empty_like(buf),
+            buf.new_empty((buf.shape[0], 2), dtype=_acc_dtype(buf.dtype)))
 
 
 @_qn_roll_op.register_vmap
@@ -337,7 +361,9 @@ def quasi_def_apply(dinv2, cwinv, vals_t, bx3, bw2):
     (`quasi_def_apply_batched`)."""
     _require(bw2 is not None, "bw must be [K, nwcon]")
     _check_shapes(dinv2, cwinv, vals_t, bx3, bw2)
-    return _quasi_def_op(dinv2, cwinv, vals_t, bx3, bw2)
+    check_split(bx3, *dinv2.shape)
+    yx, yw = _quasi_def_op(dinv2, cwinv, vals_t, bx3, bw2)
+    return _placed_like(yx, bx3), _placed_like(yw, None)
 
 
 @torch.library.custom_op(
@@ -357,6 +383,11 @@ def _quasi_def_op(dinv2, cwinv, vals_t, bx3, bw2):
     _launch("quasi_def_apply", fn, bx3.device,
             *(t.data_ptr() for t in ops), K, k, W, int(vec))
     return yx, yw
+
+
+@_quasi_def_op.register_fake
+def _quasi_def_fake(dinv2, cwinv, vals_t, bx3, bw2):
+    return torch.empty_like(bx3), torch.empty_like(bw2)
 
 
 @_quasi_def_op.register_vmap
@@ -464,7 +495,10 @@ def phi_gram(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     ``torch.func.vmap`` one call launches the instance-axis kernel once
     (`phi_gram_batched`)."""
     _check_shapes(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
-    return _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+    check_split(bx3, *dinv2.shape)
+    yx, yw, gram = _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail)
+    return (_placed_like(yx, bx3), _placed_like(yw, None),
+            _placed_like(gram, None))
 
 
 @torch.library.custom_op(
@@ -492,6 +526,14 @@ def _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
             B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
             nblocks, int(vec))
     return yx, yw, gram
+
+
+@_phi_gram_op.register_fake
+def _phi_gram_fake(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
+    k, W = dinv2.shape
+    B = bx3.shape[0] + (0 if bx3_tail is None else bx3_tail.shape[0])
+    return (bx3.new_empty((B, k, W)), bx3.new_empty((B, W)),
+            bx3.new_empty((B, B)))
 
 
 @_phi_gram_op.register_vmap
@@ -537,3 +579,64 @@ def phi_gram_batched(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
             B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
             nblocks, int(vec), kb, *(st for _, st in pairs), batched=True)
     return yx, yw, gram
+
+
+# ---------------------------------------------------------------------------
+# DTensor sharding rules (state sharded over a device mesh)
+# ---------------------------------------------------------------------------
+
+
+def check_split(bx3, k: int, W: int) -> None:
+    """Raise ValueError unless the mesh of a sharded operand divides both k
+    and nwcon: the quasi-definite kernels need whole rows of the [k, nwcon]
+    view on each rank (a contiguous shard of x) and then whole columns
+    (the column shards the kernel runs on)."""
+    P = mesh_size(bx3)
+    if k % P or W % P:
+        raise ValueError(
+            f"a mesh of {P} ranks cannot split the blocked_t view [k={k}, "
+            f"nwcon={W}]: the rank count must divide k and nwcon")
+
+
+def _placed_like(t, ref):
+    """An op's output moved to ``ref``'s placements (replicated when
+    ``ref`` is None or a plain tensor); a plain ``t`` passes as it is."""
+    if not is_sharded(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    want = (ref.placements if is_sharded(ref)
+            else [Replicate()] * t.device_mesh.ndim)
+    return t.redistribute(t.device_mesh, want)
+
+
+def _register_sharding() -> None:
+    """The three ops' DTensor rules: each rank runs the op (the kernel on
+    the card) on its local shard.  One placement per mesh axis; a 2-D mesh
+    takes the same placement on both axes."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R = Replicate()
+
+    @register_sharding(torch.ops.paropt.qn_roll_update.default)
+    def _qn_roll_rule(buf, s, y, upd):
+        # columns of the ring buffer with the matching entries of s and y;
+        # the dots are partial sums over each rank's columns
+        return [([Shard(1), Partial()], [Shard(1), Shard(0), Shard(0), R])]
+
+    @register_sharding(torch.ops.paropt.quasi_def_apply.default)
+    def _quasi_def_rule(dinv2, cwinv, vals_t, bx3, bw2):
+        # whole constraints (columns of the [k, nwcon] view) on each rank
+        return [([Shard(2), Shard(1)],
+                 [Shard(1), Shard(0), Shard(1), Shard(2), Shard(1)])]
+
+    @register_sharding(torch.ops.paropt.phi_gram.default)
+    def _phi_gram_rule(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
+        return [([Shard(2), Shard(1), Partial()],
+                 [Shard(1), Shard(0), Shard(1), Shard(2),
+                  None if bw2 is None else Shard(1),
+                  None if bx3_tail is None else Shard(2)])]
+
+
+_register_sharding()

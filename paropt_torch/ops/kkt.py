@@ -20,6 +20,8 @@ Routing on the (blocked_t, nwblock == 1) layout of the main path:
   present: one sweep reads the [2m+ncon, n] stack [Z; A] once.
 
 On a CUDA tensor the kernels launch; on a CPU tensor their plain versions run.
+On state sharded over a device mesh each rank launches them on its shard
+(`kernels`' DTensor rules); the mesh size must divide k and nwcon.
 
 The general-CSR path factors Cw, which is not block diagonal there, on the
 host (`HostCSRFactor` over `sparse_native.CSRQuasiDefMat`) and bypasses both
@@ -338,6 +340,7 @@ def quasi_def_solve(f: KKTFactor, d: ProblemData, bx, bw):
             and f.csr_solver is None):
         dt = f.Dinv.dtype
         k, nwcon = d.Aw_vals_t.shape
+        kernels.check_split(bx, k, nwcon)
         bx3 = bx.to(dt).reshape(-1, k, nwcon).contiguous()
         bw2 = bw.to(dt).reshape(-1, nwcon).contiguous()
         cwinv = 1.0 / (f.Cw_chol[:, 0, 0] ** 2)   # chol holds sqrt(Cw)
@@ -457,6 +460,7 @@ def _setup_factor_fused(v: IPVars, d: ProblemData, Dinv, Gamma, C0,
     K = Zqn.shape[0]
     B = K + ncon
     k, nwcon = d.Aw_vals_t.shape
+    kernels.check_split(Zqn, k, nwcon)
     # the stack [Z_qn; A] is read as its two row blocks, with bw = 0
     yx3, yw2, gram = kernels.phi_gram(
         Dinv.reshape(k, nwcon), 1.0 / (Cw_chol[:, 0, 0] ** 2), d.Aw_vals_t,

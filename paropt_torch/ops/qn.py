@@ -11,7 +11,9 @@ Z = [S; Y] is the buffer itself and the b0 scaling lives in the small M
 `qn_update` has the two branches of the JAX version: on a CUDA buffer the
 roll, select and Gram dots are one sweep of the `qn_roll_update` kernel and
 the b0 scalars come from its [2m, 2] dots; on the CPU the plain chain runs
-and the b0 scalars come from separate dot products.  The two sum in
+and the b0 scalars come from separate dot products.  A buffer sharded in
+columns (``qn_init(..., mesh=...)``) takes the same branches, the kernel
+on each rank's columns and its dots all-reduced.  The two sum in
 different orders, and that difference is kept on purpose: switching the b0
 source changed SR1 trajectories in the JAX package.
 """
@@ -93,9 +95,16 @@ def resolve_subspace_size(requested: int, auto: bool, nvars: int,
 def qn_init(msub: int, nvars: int, dtype=None, qn_type: str = "bfgs",
             update_type: str = "skip_negative_curvature",
             diag_type: str = "yty_over_yts", b0: float = 1.0,
-            storage_dtype=None, device=None) -> QNState:
+            storage_dtype=None, device=None, mesh=None) -> QNState:
     """``storage_dtype``: dtype of the [2m, n] ring buffer only; the small
-    matrices and scalars stay in ``dtype``."""
+    matrices and scalars stay in ``dtype``.  ``mesh`` (a device mesh,
+    `parallel.sharding`) places the ring buffer in column shards and
+    replicates the rest; ``device`` then defaults to the mesh's."""
+    if mesh is not None:
+        from ..parallel.sharding import shard_tree
+        return shard_tree(qn_init(msub, nvars, dtype, qn_type, update_type,
+                                  diag_type, b0, storage_dtype,
+                                  device or mesh.device_type), mesh, nvars)
     dtype = resolve_dtype(dtype)
     device = resolve_device(device)
     sdtype = dtype if storage_dtype is None else storage_dtype

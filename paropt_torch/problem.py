@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .dtypes import resolve_device
+from .parallel.sharding import is_sharded, shard_like
 
 __all__ = ["Problem", "SparseJacobian", "check_gradients",
            "CSRSparseProblem"]
@@ -150,16 +151,23 @@ class Problem:
         return f, c
 
     def eval_obj_con_gradient(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (g[n], A[ncon, n])."""
+        """-> (g[n], A[ncon, n]).  On a sharded x both come back sharded
+        like x (a derivative of a mean, say, is a replicated broadcast in
+        DTensor)."""
         g = torch.func.grad(self.objective)(x)
         if self.ncon > 0:
             A = torch.func.jacrev(self.constraints)(x)
         else:
             A = x.new_zeros((0, self.nvars))
+        if is_sharded(x):
+            g, A = shard_like(g, x), shard_like(A, x)
         return g, A
 
     def eval_hvec_product(self, x, z, zw, px) -> torch.Tensor:
-        """H(x, z, zw) @ px for L = f - z.c - zw.cw."""
+        """H(x, z, zw) @ px for L = f - z.c - zw.cw: forward mode over
+        reverse mode.  Forward mode has no DTensor rules, so on sharded
+        state the same product comes from reverse over reverse, the
+        gradient of <∇L(x), px> (H is symmetric)."""
         def lag_grad(xv):
             g = torch.func.grad(self.objective)(xv)
             if self.ncon > 0:
@@ -167,6 +175,9 @@ class Problem:
             if self.nwcon > 0:
                 g = g - torch.func.vjp(self.sparse_constraints, xv)[1](zw)[0]
             return g
+        if is_sharded(x):
+            return torch.func.grad(
+                lambda xv: torch.sum(lag_grad(xv) * px))(x)
         return torch.func.jvp(lag_grad, (x,), (px,))[1]
 
     def eval_hessian_diag(self, x, z, zw) -> torch.Tensor:

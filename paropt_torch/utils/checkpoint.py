@@ -15,15 +15,26 @@ rebuilds the state on the structure of a template: each leaf takes the
 template leaf's dtype (bfloat16 QN storage stays bfloat16) and device, and
 a class, shape or static-field mismatch raises.  A JAX Orbax checkpoint is
 read by paropt_tpu and carried over by `paropt_torch.convert`.
+
+A state sharded over a device mesh (DTensor leaves, `parallel.sharding`)
+is written as a ``torch.distributed.checkpoint`` directory (a
+``FileSystemWriter``: each rank writes its own shards, every rank calls)
+holding the same dict (the tensors as DCP items, the rest pickled);
+`restore_state` reads it back with each leaf placed as the template's
+leaf is.  This stands where the JAX package writes an Orbax/TensorStore
+directory: the formats differ (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 from typing import Any, Dict
 
 import torch
+
+from ..parallel.sharding import is_sharded, settle, tree_is_sharded
 
 __all__ = ["save_state", "restore_state"]
 
@@ -48,7 +59,10 @@ def _children(obj):
     return None
 
 
-def _flatten(obj, path: str, out: Dict[str, Dict[str, Any]]) -> None:
+def _flatten(obj, path: str, out: Dict[str, Dict[str, Any]],
+             keep: bool = False) -> None:
+    """Fill ``out`` from the tree; ``keep`` leaves each tensor where it is
+    (a DTensor stays sharded) instead of copying it to the host."""
     kids = _children(obj)
     if kids is not None:
         out["classes"][path] = _qualname(obj)
@@ -57,20 +71,32 @@ def _flatten(obj, path: str, out: Dict[str, Dict[str, Any]]) -> None:
             if static:
                 out["static"][sub] = value
             else:
-                _flatten(value, sub, out)
+                _flatten(value, sub, out, keep)
     elif isinstance(obj, torch.Tensor):
-        out["tensors"][path] = obj.detach().cpu().clone()
+        out["tensors"][path] = (obj.detach() if keep
+                                else obj.detach().cpu().clone())
     else:                               # None or a Python scalar
         out["static"][path] = obj
 
 
 def save_state(path: str, state: Any) -> None:
     """Write a state (a dataclass of tensors such as `FusedState`, a
-    NamedTuple or a dict of them) to ``path`` with ``torch.save``."""
+    NamedTuple or a dict of them) to ``path`` with ``torch.save``, or, when
+    some leaf is a DTensor, to the directory ``path`` with
+    ``torch.distributed.checkpoint`` (every rank calls)."""
     out = {"format": _FORMAT, "class": _qualname(state), "classes": {},
            "tensors": {}, "static": {}}
-    _flatten(state, "", out)
+    sharded = tree_is_sharded(state)
+    if sharded:
+        state = settle(state)   # DCP takes no pending sums
+    _flatten(state, "", out, keep=sharded)
     path = os.path.abspath(path)
+    if sharded:
+        import torch.distributed.checkpoint as dcp
+        tensors = out.pop("tensors")
+        dcp.save({"tensors": tensors, "meta": pickle.dumps(out)},
+                 storage_writer=dcp.FileSystemWriter(path))
+        return
     tmp = path + ".tmp"
     torch.save(out, tmp)
     os.replace(tmp, path)               # a reader never sees half a file
@@ -108,6 +134,8 @@ def _rebuild(tmpl, path: str, saved) -> Any:
             raise ValueError(f"checkpoint tensor {path!r} has shape "
                              f"{tuple(t.shape)}, the template "
                              f"{tuple(tmpl.shape)}")
+        if is_sharded(t):
+            return t
         return t.to(dtype=tmpl.dtype, device=tmpl.device)
     if path not in saved["static"] or saved["static"][path] != tmpl:
         raise ValueError(f"checkpoint leaf {path!r} is "
@@ -116,11 +144,36 @@ def _rebuild(tmpl, path: str, saved) -> Any:
     return tmpl
 
 
+def _load_sharded(path: str, template: Any) -> Dict[str, Any]:
+    """The dict of a `save_state` directory, each tensor read into an
+    empty copy of the template's leaf (its dtype, device and placements)."""
+    import torch.distributed.checkpoint as dcp
+    want = {"tensors": {}, "static": {}, "classes": {}}
+    _flatten(template, "", want, keep=True)
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    for key, t in want["tensors"].items():
+        got = meta.get(f"tensors.{key}")
+        if got is None:
+            raise ValueError(f"checkpoint has no tensor {key!r}")
+        if tuple(got.size) != tuple(t.shape):
+            raise ValueError(f"checkpoint tensor {key!r} has shape "
+                             f"{tuple(got.size)}, the template "
+                             f"{tuple(t.shape)}")
+    tensors = {k: torch.empty_like(t) for k, t in want["tensors"].items()}
+    box = {"tensors": tensors, "meta": b""}
+    dcp.load(box, storage_reader=dcp.FileSystemReader(path))
+    return dict(pickle.loads(box["meta"]), tensors=box["tensors"])
+
+
 def restore_state(path: str, template: Any) -> Any:
     """Read a state written by `save_state`; each tensor leaf takes the
-    dtype and device of the template's leaf at the same path."""
-    saved = torch.load(os.path.abspath(path), map_location="cpu",
-                       weights_only=True)
+    dtype and device of the template's leaf at the same path (and, from a
+    sharded checkpoint's directory, its placements)."""
+    path = os.path.abspath(path)
+    if os.path.isdir(path):
+        saved = _load_sharded(path, template)
+    else:
+        saved = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(saved, dict) or saved.get("format") != _FORMAT:
         raise ValueError(f"{path} is not a paropt_torch checkpoint")
     if saved["class"] != _qualname(template):

@@ -80,8 +80,20 @@ def test_ip_solution_file_checks_shapes(tmp_path):
                 {"output_file": None})
     with pytest.raises(ValueError, match="shape"):
         other.read_solution_file(path)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        other.read_solution_file(str(tmp_path))  # a directory: Orbax
+    # a directory is the checkpoint of sharded state (torch.distributed.
+    # checkpoint, where paropt_tpu writes Orbax); its shapes are checked
+    # the same way
+    import torch.distributed as dist
+    from paropt_torch.parallel.sharding import design_mesh, shard_tree
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        ip.vars = shard_tree(ip.vars, design_mesh("cpu"), 64)
+        ip.write_solution_file(str(tmp_path / "sharded"))
+        with pytest.raises(ValueError, match="shape"):
+            other.read_solution_file(str(tmp_path / "sharded"))
+    finally:
+        dist.destroy_process_group()
 
 
 MMA_OPTS = {"mma_output_file": None, "dtype": "float64",

@@ -19,6 +19,7 @@ float64.
   the JAX package does.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -257,12 +258,27 @@ def test_gmres_phase_raises():
     assert res["converged"] and ip.nhvec > 0
 
 
+@contextlib.contextmanager
+def _gloo(tmp_path):
+    """A one-rank gloo group and its ("d",) mesh, for sharded state."""
+    import torch.distributed as dist
+    from paropt_torch.parallel.sharding import design_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        yield design_mesh("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_checkpoints_raise(tmp_path):
     """Checkpoints are ported (ROADMAP item 13; tests/
     test_torch_checkpoint.py holds them against paropt_tpu): the calls
     that raised write and read the npz solution file, and
     ``optimize(checkpoint=...)`` rewrites it at the write-output cadence.
-    Only an Orbax directory (sharded state, item 14) still raises."""
+    A directory, which raised until item 14a, is the checkpoint of sharded
+    state: written and read back whole (tests/test_torch_sharding.py holds
+    its placements)."""
     path = str(tmp_path / "x.npz")
     ip = tip.InteriorPoint(_small(), {"output_file": None,
                                       "write_output_frequency": 3})
@@ -274,8 +290,14 @@ def test_checkpoints_raise(tmp_path):
     again = tip.InteriorPoint(_small(), {"output_file": None})
     again.read_solution_file(path)
     assert torch.equal(again.vars.x, ip.vars.x) and again.mu == ip.mu
-    with pytest.raises(NotImplementedError, match="item 14"):
-        again.read_solution_file(str(tmp_path))
+    from paropt_torch.parallel.sharding import shard_tree
+    with _gloo(tmp_path) as mesh:
+        ip.vars = shard_tree(ip.vars, mesh, 64)
+        ip.write_solution_file(str(tmp_path / "sharded"))
+        fresh = tip.InteriorPoint(_small(), {"output_file": None})
+        fresh.read_solution_file(str(tmp_path / "sharded"))
+        assert torch.equal(fresh.vars.x, again.vars.x)
+        assert fresh.mu == again.mu
 
 
 def test_general_csr_path_raises():
@@ -310,19 +332,20 @@ def test_callback_sparse_path_raises():
 
 
 def test_sharded_state_raises(tmp_path):
-    """A design vector distributed over a device mesh (a DTensor)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    """A design vector distributed over a device mesh (a DTensor), which
+    raised until ROADMAP item 14a, now solves: the same iterations,
+    objective and point as the plain vector, x still sharded
+    (tests/test_torch_distributed.py holds it on 4 ranks)."""
     from torch.distributed.tensor import Shard, distribute_tensor
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
-                            rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh("cpu", (1,))
+    plain = tip.InteriorPoint(_small(), {"output_file": None}).optimize()
+    with _gloo(tmp_path) as mesh:
         prob = _small()
         x0, lb, ub = prob.get_vars_and_bounds()
         prob.get_vars_and_bounds = lambda: (
             distribute_tensor(x0, mesh, [Shard(0)]), lb, ub)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tip.InteriorPoint(prob, {"output_file": None})
-    finally:
-        dist.destroy_process_group()
+        res = tip.InteriorPoint(prob, {"output_file": None}).optimize()
+        assert res["x"].placements == (Shard(0),)
+        assert res["niter"] == plain["niter"] and res["converged"]
+        assert res["fobj"] == pytest.approx(plain["fobj"], rel=1e-13)
+        torch.testing.assert_close(res["x"].full_tensor(), plain["x"],
+                                   rtol=0, atol=1e-12)

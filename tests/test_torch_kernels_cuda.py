@@ -482,3 +482,47 @@ def test_cuda_batched_lobpcg_matches_single_solves(cuda):
         t1, U1, i1 = lobpcg.lobpcg_standard(lambda v: A[j] @ v, X[j], m=m)
         assert iters[j] == i1
         assert_close(theta[j], t1, rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on sharded state (DTensor over a world-size-1 NCCL mesh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    import torch.distributed as dist
+    from paropt_torch.parallel.sharding import design_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        yield design_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_sharded_route_launches_the_kernels(nccl_mesh, dtype,
+                                                 monkeypatch):
+    """Each op on CUDA DTensors placed as the main path places them
+    launches its kernel on the rank's shard, once, and equals the
+    unsharded launch bit for bit; the plain versions are never reached
+    (each is replaced by one that raises)."""
+    from paropt_torch.parallel.worker import op_inputs, place_ops, run_ops
+    ops = {k: v.to(nccl_mesh.device_type)
+           for k, v in op_inputs(1 << 16, 1, 21, 10, dtype).items()}
+    want = run_ops(ops, kernels)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("qn_roll_update_plain", "quasi_def_apply_plain",
+                 "phi_gram_plain"):
+        monkeypatch.setattr(kernels, name, refuse)
+    kernels.reset_launches()
+    got = run_ops(place_ops(ops, nccl_mesh), kernels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"qn_roll_update": 1, "quasi_def_apply": 1,
+                                "phi_gram": 1}
+    for key, val in want.items():
+        assert torch.equal(got[key].full_tensor(), val), key
