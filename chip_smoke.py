@@ -3230,13 +3230,12 @@ def phase_surface(torch):
     return compat_launches, native_launches, fn_launches
 
 
-def _ranks(nproc, out, *args, backend=None):
+def _ranks(nproc, out, *args):
     """Run ``nproc`` ranks of paropt_torch.parallel.worker on the card(s)
     (a failure raises, and fails the script); each rank's JSON."""
     from paropt_torch.parallel.worker import spawn
-    extra = ["--backend", backend] if backend else []
-    spawn(nproc, ["--device", "cuda", "--out", out, *extra, *args],
-          timeout=300, cwd=str(ROOT))
+    spawn(nproc, ["--device", "cuda", "--out", out, *args], timeout=300,
+          cwd=str(ROOT))
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(nproc)]
 
@@ -3275,7 +3274,8 @@ def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
                  "--tol", 1e-6, "--steps", 0, "--refine", 0]
     # (a) one rank, NCCL
     out = base / "a"
-    ranks = _ranks(1, out, "--cases", "coll,ops,ip,ckpt", *main_args)
+    ranks = _ranks(1, out, "--cases", "coll,ops,ip,overhead,ckpt",
+                   *main_args)
     r0 = ranks[0]
     ip, iters, fobj = _sharded_ip(torch, "(a)", ranks, N_MAIN, "float32")
     x = np.load(out / "ip_x.npy")
@@ -3286,6 +3286,18 @@ def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
         f"{step_4:.4f} s per step ({step_s / step_4:.2f}x), "
         f"{ip['reads'] / iters:.2f} vs {SLICE['reads'] / SLICE['iters']:.2f}"
         f" host reads per step")
+    ov = r0["overhead"]
+    plain, shd = ov["plain"], ov["sharded"]
+    log(f"[sharded] (a) host time per step, each solve warm in the worker: "
+        f"plain tensors {plain['seconds'] / plain['iters']:.4f} s, sharded "
+        f"{shd['seconds'] / shd['iters']:.4f} s, of which the spmd mode's "
+        f"own work (its settle walk and the all-reduces it issues, "
+        f"{shd['mode_calls'] / shd['iters']:.0f} torch functions per step) "
+        f"{shd['mode_seconds'] / shd['iters']:.4f} s; the rest of the "
+        f"excess lies outside the mode (DTensor's dispatch and "
+        f"collectives, the gathered host reads), not split further")
+    check(plain["iters"] == shd["iters"] == iters,
+          "the overhead case's solves took other step counts")
     check(iters == ip_iters, f"(a) took {iters} steps, phase 4 {ip_iters}")
     check(abs(fobj - ip_fobj) <= 1e-6 * abs(ip_fobj), "(a) fobj differs")
     check(ip["launches"] == ip_launches, f"(a) launched {ip['launches']}, "
@@ -3337,10 +3349,10 @@ def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
         check(iters_b == iters, "(b) took another iteration count")
         check(abs(fobj_b - fobj) <= 1e-6 * abs(fobj), "(b) fobj differs")
     else:
-        log("[sharded] (b) not run: one card.  Two ranks cannot share it: "
-            "NCCL refuses two ranks on one device, and gloo's all-gather "
-            "of CUDA tensors, which DTensor's redistribution calls, ends "
-            "the process on this PyTorch (PERF.md, PR 12)")
+        log("[sharded] (b) not run: one card.  (c), two ranks sharing it, "
+            "is left out: NCCL refuses two ranks on one device, and gloo's "
+            "all-gather of CUDA tensors, which DTensor's redistribution "
+            "calls, ends the process on this PyTorch (PERF.md)")
     log(f"[sharded] phase 36 took {time.perf_counter() - t_phase:.2f} s")
     return ip["launches"]
 

@@ -37,7 +37,7 @@ from torch.profiler import record_function
 from ..dtypes import resolve_device, resolve_dtype
 from ..ip import HostSyncs
 from ..ops.lobpcg import lobpcg_standard, lobpcg_standard_batched
-from ..parallel.sharding import refuse_sharded
+from ..parallel.sharding import refuses_sharded
 from ..problem import Problem
 from .fem_topology import FEMTopology
 from .fem_topology3d import (_CORNERS3D, FEMTopology3D, _from_grid3, _sl,
@@ -46,6 +46,7 @@ from .fem_topology3d import (_CORNERS3D, FEMTopology3D, _from_grid3, _sl,
 __all__ = ["FrequencyTopology", "FrequencyTopology3D"]
 
 
+@refuses_sharded
 class _FrequencyBase(Problem):
     """The KS aggregate and its eigen model, shared by the 2-D and 3-D
     models.  Subclasses set ``fem``, ``N``, ``ks_rho``, ``rho_min``, ``lb``,
@@ -162,16 +163,13 @@ class _FrequencyBase(Problem):
     # -- the Problem surface (the constraint is not differentiable through
     #    the eigensolve: its gradient is the analytic one) ----------------
     def objective(self, x):
-        refuse_sharded(type(self).__name__, x)
         return torch.mean(self.fem._filter(x))
 
     def eval_obj_con(self, x):
-        refuse_sharded(type(self).__name__, x)
         ev = self._eval(x)
         return self.objective(x), self._tensor([ev["ks"]])
 
     def eval_obj_con_gradient(self, x):
-        refuse_sharded(type(self).__name__, x)
         ev = self._eval(x)
         g = torch.func.grad(self.objective)(self._tensor(x))
         return g, self._tensor(ev["dks"])[None, :]

@@ -30,7 +30,7 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
-from ..parallel.sharding import refuse_sharded
+from ..parallel.sharding import refuses_sharded
 from ..problem import Problem, SparseJacobian
 
 __all__ = ["FEMTopology", "DMOFEMTopology"]
@@ -166,6 +166,7 @@ class _Compliance(torch.autograd.Function):
         return ctx.model._compliance_vjp(x, u, ct), None
 
 
+@refuses_sharded
 class FEMTopology(Problem):
     """The 2-D SIMP compliance problem.  ``device`` holds every array; the
     constructor turns TF32 off for float32 matrix products, without which
@@ -432,15 +433,12 @@ class FEMTopology(Problem):
 
     # -- Problem surface -------------------------------------------------
     def objective(self, x):
-        refuse_sharded("FEMTopology", x)
         return self.c_scale * self._compliance(self._filter(x))
 
     def constraints(self, x):
-        refuse_sharded("FEMTopology", x)
         return (self.volume_fraction - torch.mean(self._filter(x))).reshape(1)
 
     def sparse_constraints(self, x):
-        refuse_sharded("FEMTopology", x)
         # region caps act on the RAW densities, keeping the weighting
         # Jacobian exactly the block pattern
         rm = torch.mean(x.reshape(self.nwcon, self.region), dim=1)
@@ -456,6 +454,7 @@ class FEMTopology(Problem):
                 torch.full((ne,), 1e-3, **kw), torch.ones(ne, **kw))
 
 
+@refuses_sharded
 class DMOFEMTopology(Problem):
     """Multi-material (Discrete Material Optimization) 2-D compliance
     problem: per-element material weights with one "weights sum <= 1"
@@ -518,16 +517,13 @@ class DMOFEMTopology(Problem):
 
     # -- Problem surface -------------------------------------------------
     def objective(self, x):
-        refuse_sharded("DMOFEMTopology", x)
         return self.c_scale * self._compliance(x)
 
     def constraints(self, x):
-        refuse_sharded("DMOFEMTopology", x)
         mass = torch.mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
 
     def sparse_constraints(self, x):
-        refuse_sharded("DMOFEMTopology", x)
         return 1.0 - torch.sum(x.reshape(self.ne, self.nmat), dim=1)
 
     def sparse_jacobian(self, x):

@@ -45,7 +45,7 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
-from ..parallel.sharding import refuse_sharded
+from ..parallel.sharding import refuses_sharded
 from ..problem import Problem, SparseJacobian
 from .fem_topology import _Compliance, _interleave, _interleave_t
 
@@ -237,6 +237,7 @@ def _restrict3d():
     return restrict
 
 
+@refuses_sharded
 class FEMTopology3D(Problem):
     """Cantilever voxel design domain: fixed at the x = 0 face, unit
     downward load along the bottom edge of the free face.  ``device`` holds
@@ -517,15 +518,12 @@ class FEMTopology3D(Problem):
 
     # -- Problem surface --------------------------------------------------
     def objective(self, x):
-        refuse_sharded("FEMTopology3D", x)
         return self.c_scale * self._compliance(self._filter(x))
 
     def constraints(self, x):
-        refuse_sharded("FEMTopology3D", x)
         return (self.volume_fraction - torch.mean(x)).reshape(1)
 
     def sparse_constraints(self, x):
-        refuse_sharded("FEMTopology3D", x)
         return self.region_cap - torch.mean(
             x.reshape(self.nwcon, self.region), dim=1)
 
@@ -539,6 +537,7 @@ class FEMTopology3D(Problem):
                 torch.zeros(n, **kw), torch.ones(n, **kw))
 
 
+@refuses_sharded
 class DMOFEMTopology3D(Problem):
     """Multi-material (DMO) 3-D voxel compliance design: per-voxel material
     weights x[e, m] with one "weights sum <= 1" constraint per voxel (the
@@ -599,16 +598,13 @@ class DMOFEMTopology3D(Problem):
 
     # -- Problem surface --------------------------------------------------
     def objective(self, x):
-        refuse_sharded("DMOFEMTopology3D", x)
         return self.c_scale * self._compliance(x)
 
     def constraints(self, x):
-        refuse_sharded("DMOFEMTopology3D", x)
         mass = torch.mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
 
     def sparse_constraints(self, x):
-        refuse_sharded("DMOFEMTopology3D", x)
         return 1.0 - torch.sum(x.reshape(self.ne, self.nmat), dim=1)
 
     def sparse_jacobian(self, x):

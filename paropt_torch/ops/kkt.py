@@ -340,7 +340,6 @@ def quasi_def_solve(f: KKTFactor, d: ProblemData, bx, bw):
             and f.csr_solver is None):
         dt = f.Dinv.dtype
         k, nwcon = d.Aw_vals_t.shape
-        kernels.check_split(bx, k, nwcon)
         bx3 = bx.to(dt).reshape(-1, k, nwcon).contiguous()
         bw2 = bw.to(dt).reshape(-1, nwcon).contiguous()
         cwinv = 1.0 / (f.Cw_chol[:, 0, 0] ** 2)   # chol holds sqrt(Cw)
@@ -460,7 +459,6 @@ def _setup_factor_fused(v: IPVars, d: ProblemData, Dinv, Gamma, C0,
     K = Zqn.shape[0]
     B = K + ncon
     k, nwcon = d.Aw_vals_t.shape
-    kernels.check_split(Zqn, k, nwcon)
     # the stack [Z_qn; A] is read as its two row blocks, with bw = 0
     yx3, yw2, gram = kernels.phi_gram(
         Dinv.reshape(k, nwcon), 1.0 / (Cw_chol[:, 0, 0] ** 2), d.Aw_vals_t,

@@ -46,7 +46,8 @@ __all__ = ["DESIGN_AXIS", "HOST_AXIS", "init_distributed", "design_mesh",
            "hybrid_design_mesh", "design_sharding", "row_sharding",
            "replicated_sharding", "shard_design", "replicate", "shard_tree",
            "place_like", "shard_like", "is_sharded", "tree_is_sharded",
-           "mesh_size", "spmd", "settle", "refuse_sharded"]
+           "mesh_size", "spmd", "settle", "refuse_sharded",
+           "refuses_sharded"]
 
 # Name of the mesh axis over which design-dimension arrays are sharded.
 DESIGN_AXIS = "d"
@@ -363,6 +364,30 @@ def refuse_sharded(what: str, *trees) -> None:
         raise NotImplementedError(
             f"{what} on sharded state is not ported yet (ROADMAP queue 1 "
             f"item 14b)")
+
+
+def refuses_sharded(cls):
+    """Class decorator of a model that runs on sharded state only once
+    ROADMAP item 14b is ported: each Problem method the class defines
+    among the evaluations (`_EVALUATIONS`) first calls `refuse_sharded` on
+    its design vector."""
+    for name in _EVALUATIONS:
+        fn = cls.__dict__.get(name)
+        if fn is not None:
+            setattr(cls, name, _refusing(fn))
+    return cls
+
+
+_EVALUATIONS = ("objective", "constraints", "sparse_constraints",
+                "eval_obj_con", "eval_obj_con_gradient")
+
+
+def _refusing(fn):
+    @functools.wraps(fn)
+    def run(self, x, *args, **kwargs):
+        refuse_sharded(type(self).__name__, x)
+        return fn(self, x, *args, **kwargs)
+    return run
 
 
 def settle(tree):

@@ -11,8 +11,12 @@ each case of ``--cases``:
 - ``coll``: the redistributions a sharded solve makes, checked;
 - ``ops``: the three kernels' DTensor rules against their plain versions;
 - ``ip``: FusedIP with in-loop L-BFGS on SyntheticTopology (the main
-  path): ``--steps`` host-paced steps, then ``solve`` from that state to
-  convergence; the trajectory (k, fobj, res, mu per step) and the final x;
+  path), after a 2-step warm-up solve: ``--steps`` host-paced steps, then
+  ``solve`` from that state to convergence; the trajectory (k, fobj, res,
+  mu per step) and the final x;
+- ``overhead``: the same solve, warm, on plain tensors and on sharded
+  state in this process, and the share of the latter spent in the spmd
+  mode's own work (`ModeSeconds`);
 - ``ckpt``: a sharded FusedIP state saved to a
   ``torch.distributed.checkpoint`` directory and restored: the largest
   leaf difference, the placements kept, and one more step from each;
@@ -40,7 +44,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["spawn", "main"]
+__all__ = ["spawn", "main", "QP_N", "MMA_N", "HOST_IP_N"]
 
 
 def _free_port() -> int:
@@ -147,13 +151,16 @@ def _row(st) -> dict:
 
 
 def case_ip(ctx) -> dict:
-    """The main path: ``--steps`` steps, then the solve from there."""
+    """The main path: ``--steps`` steps, then the solve from there; timed
+    after a 2-step warm-up solve, as chip_smoke.py's phase 4 times its
+    unsharded solve."""
     from ..ops import kernels
     from .sharding import shard_tree
     a = ctx.args
     fused, data, x0, qn0 = _fused_ip(ctx, a.n, a.msub, a.tol)
     ds = shard_tree(data, ctx.mesh, a.n)
     x0, qn0 = shard_tree((x0, qn0), ctx.mesh, a.n)
+    fused.solve(x0, ds, (), qn0, None, max_iters=2)
     _sync(ctx)
     kernels.reset_launches()
     reads0 = fused.syncs.count
@@ -183,6 +190,75 @@ def case_ip(ctx) -> dict:
                 "x": str(st.vars.x.placements), "zw": _placement(st.vars.zw),
                 "qn.buf": str(st.qn.buf.placements),
                 "A": str(st.A.placements)}}
+
+
+def case_overhead(ctx) -> dict:
+    """The main path's solve, each run warm (a 2-step solve first) and
+    timed alone: on plain tensors, then on sharded state with the seconds
+    the spmd mode spends outside the torch functions it wraps
+    (`ModeSeconds`).  The rest of the sharded run's excess over the plain
+    one lies outside the mode (DTensor's dispatch and collectives, the
+    gathered host reads) and is not split here."""
+    from .sharding import shard_tree
+    a = ctx.args
+    fused, data, x0, qn0 = _fused_ip(ctx, a.n, a.msub, a.tol)
+    ds = shard_tree(data, ctx.mesh, a.n)
+    xs, qs = shard_tree((x0, qn0), ctx.mesh, a.n)
+    out = {}
+    for name, args in (("plain", (x0, data, (), qn0, None)),
+                       ("sharded", (xs, ds, (), qs, None))):
+        fused.solve(*args, max_iters=2)
+        _sync(ctx)
+        with ModeSeconds() as mode:
+            t0 = time.perf_counter()
+            st = fused.solve(*args)
+            _sync(ctx)
+            seconds = time.perf_counter() - t0
+        out[name] = {"seconds": seconds, "iters": int(st.k),
+                     "mode_seconds": mode.seconds, "mode_calls": mode.calls}
+    return out
+
+
+class ModeSeconds:
+    """Times the spmd mode's own work (`sharding._SettleReductions`) while
+    it is entered: per torch function, the seconds spent in the mode
+    outside the function itself (its dispatch, its settle walk and the
+    all-reduces of pending sums that walk issues)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        from .sharding import _SettleReductions
+        self._saved = _SettleReductions.mode
+        base = type(_SettleReductions.make())
+        outer = self
+
+        class Timed(base):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                inner = 0.0
+
+                def timed(*a, **k):
+                    nonlocal inner
+                    t1 = time.perf_counter()
+                    try:
+                        return func(*a, **k)
+                    finally:
+                        inner += time.perf_counter() - t1
+
+                t0 = time.perf_counter()
+                out = super().__torch_function__(timed, types, args, kwargs)
+                outer.seconds += time.perf_counter() - t0 - inner
+                outer.calls += 1
+                return out
+
+        _SettleReductions.mode = Timed
+        return self
+
+    def __exit__(self, *exc):
+        from .sharding import _SettleReductions
+        _SettleReductions.mode = self._saved
 
 
 class CollectiveBytes:
@@ -301,14 +377,19 @@ def case_qp(ctx) -> dict:
     """The TR's fused QP at x0 on sharded data, params and compact form
     (`tr_qp_inputs` builds the inputs the tests use unsharded)."""
     from .sharding import shard_tree
-    a = ctx.args
-    tr, p0, data, params = tr_qp_inputs(a.qp_n, ctx.dtype, ctx.device)
-    ds = shard_tree(data, ctx.mesh, a.qp_n)
-    ps = shard_tree(params, ctx.mesh, a.qp_n)
-    st = tr._fused_qp.solve(shard_tree(p0, ctx.mesh, a.qp_n), ds, ps,
+    tr, p0, data, params = tr_qp_inputs(QP_N, ctx.dtype, ctx.device)
+    ds = shard_tree(data, ctx.mesh, QP_N)
+    ps = shard_tree(params, ctx.mesh, QP_N)
+    st = tr._fused_qp.solve(shard_tree(p0, ctx.mesh, QP_N), ds, ps,
                             compact=(ps.b0, ps.Z, ps.M))
     ctx.save("qp", x=st.vars.x, zw=st.vars.zw)
     return {"k": int(st.k), "converged": bool(st.converged)}
+
+
+# the sizes of the qp, mma and hostip cases (the tests import them)
+QP_N = 2048
+MMA_N = 512
+HOST_IP_N = 1024
 
 
 def tr_qp_inputs(n, dtype, device):
@@ -379,7 +460,7 @@ def case_mma(ctx) -> dict:
     from ..mma import FusedMMA
     from ..models.topology import SyntheticTopology
     from .sharding import shard_tree
-    n = ctx.args.mma_n
+    n = MMA_N
     solver = FusedMMA(SyntheticTopology(n=n, block=8, dtype=ctx.dtype,
                                         device=ctx.device),
                       dict(MMA_OPTS, dtype=str(ctx.dtype).split(".")[-1]))
@@ -401,7 +482,7 @@ def case_hostip(ctx) -> dict:
     from ..ip import InteriorPoint
     from ..models.topology import SyntheticTopology
     from .sharding import shard_design
-    n = ctx.args.hostip_n
+    n = HOST_IP_N
     prob = SyntheticTopology(n=n, block=8, dtype=ctx.dtype,
                              device=ctx.device)
     x0, lb, ub = prob.get_vars_and_bounds()
@@ -516,8 +597,9 @@ def case_coll(ctx) -> dict:
                 cols.full_tensor() - whole.reshape(8, n // 8))))}
 
 
-CASES = {"coll": case_coll, "ops": case_ops, "ip": case_ip, "ckpt": case_ckpt, "qp": case_qp, "nk": case_nk,
-         "mma": case_mma, "hostip": case_hostip}
+CASES = {"coll": case_coll, "ops": case_ops, "ip": case_ip,
+         "overhead": case_overhead, "ckpt": case_ckpt, "qp": case_qp,
+         "nk": case_nk, "mma": case_mma, "hostip": case_hostip}
 
 
 def main(argv=None) -> None:
@@ -526,8 +608,6 @@ def main(argv=None) -> None:
                     help=f"comma-separated, of {sorted(CASES)}")
     ap.add_argument("--out", required=True, help="output directory")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--backend", default=None,
-                    help="gloo or nccl (default: nccl with a card)")
     ap.add_argument("--dtype", default="float64",
                     choices=("float64", "float32"))
     ap.add_argument("--hosts", type=int, default=0,
@@ -539,16 +619,11 @@ def main(argv=None) -> None:
                     help="ip: host-paced steps before the solve")
     ap.add_argument("--refine", type=int, default=1,
                     help="ip, ckpt: iterative refinement steps")
-    ap.add_argument("--qp-n", type=int, default=2048)
-    ap.add_argument("--mma-n", type=int, default=512)
-    ap.add_argument("--hostip-n", type=int, default=1024)
-    ap.add_argument("--threads", type=int, default=1)
     args = ap.parse_args(argv)
 
-    torch.set_num_threads(args.threads)
+    torch.set_num_threads(1)
     from . import sharding
-    sharding.init_distributed(args.backend or (
-        "gloo" if args.device == "cpu" else None))
+    sharding.init_distributed("gloo" if args.device == "cpu" else "nccl")
     os.makedirs(args.out, exist_ok=True)
     try:
         mesh = (sharding.hybrid_design_mesh(args.hosts,

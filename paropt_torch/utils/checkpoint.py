@@ -19,16 +19,22 @@ read by paropt_tpu and carried over by `paropt_torch.convert`.
 A state sharded over a device mesh (DTensor leaves, `parallel.sharding`)
 is written as a ``torch.distributed.checkpoint`` directory (a
 ``FileSystemWriter``: each rank writes its own shards, every rank calls)
-holding the same dict (the tensors as DCP items, the rest pickled);
-`restore_state` reads it back with each leaf placed as the template's
-leaf is.  This stands where the JAX package writes an Orbax/TensorStore
-directory: the formats differ (ROADMAP queue 3).
+holding the tensors, beside the same dict without them in ``_META``
+(``torch.save``, read back with ``weights_only=True``).  DCP reads its own
+``.metadata`` file with ``pickle``, so `restore_state` first reads that
+file through an unpickler that admits only the globals such a file names
+(`_DCPMetadataUnpickler`): loading a directory runs no code it carries,
+as loading the single file runs none.  Each leaf comes back placed as the
+template's leaf is.  This stands where the JAX package writes an
+Orbax/TensorStore directory: the formats differ (ROADMAP queue 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 import os
+import pathlib
 import pickle
 from typing import Any, Dict
 
@@ -39,6 +45,8 @@ from ..parallel.sharding import is_sharded, settle, tree_is_sharded
 __all__ = ["save_state", "restore_state"]
 
 _FORMAT = "paropt_torch.checkpoint/1"
+# a sharded checkpoint directory's non-tensor part
+_META = "paropt_state.pt"
 
 
 def _qualname(obj) -> str:
@@ -94,12 +102,47 @@ def save_state(path: str, state: Any) -> None:
     if sharded:
         import torch.distributed.checkpoint as dcp
         tensors = out.pop("tensors")
-        dcp.save({"tensors": tensors, "meta": pickle.dumps(out)},
+        if torch.distributed.get_rank() == 0:
+            os.makedirs(path, exist_ok=True)
+            _save_file(out, os.path.join(path, _META))
+        dcp.save({"tensors": tensors},
                  storage_writer=dcp.FileSystemWriter(path))
         return
+    _save_file(out, path)
+
+
+def _save_file(obj, path: str) -> None:
     tmp = path + ".tmp"
-    torch.save(out, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)               # a reader never sees half a file
+
+
+class _DCPMetadataUnpickler(pickle.Unpickler):
+    """Reads DCP's ``.metadata`` pickle, admitting only what such a file
+    names: DCP's metadata dataclasses and enums, ``torch.Size``, dtypes,
+    layouts and paths.  Any other global (a callable a crafted file would
+    have pickle call) raises before its module is imported."""
+
+    _MODULES = ("torch.distributed.checkpoint.metadata",
+                "torch.distributed.checkpoint.filesystem", "torch",
+                "torch.serialization", "pathlib")
+
+    def find_class(self, module, name):
+        if module in self._MODULES or module.startswith("pathlib."):
+            obj = super().find_class(module, name)
+            if (module.startswith("torch.distributed.checkpoint.")
+                    and isinstance(obj, type)
+                    and (dataclasses.is_dataclass(obj)
+                         or issubclass(obj, enum.Enum))
+                    or obj is torch.Size or isinstance(obj, torch.dtype)
+                    or (module, name) == ("torch.serialization",
+                                          "_get_layout")
+                    or isinstance(obj, type)
+                    and issubclass(obj, pathlib.PurePath)):
+                return obj
+        raise pickle.UnpicklingError(
+            f"checkpoint metadata names {module}.{name}, which a "
+            f"checkpoint does not hold")
 
 
 def _rebuild(tmpl, path: str, saved) -> Any:
@@ -148,21 +191,26 @@ def _load_sharded(path: str, template: Any) -> Dict[str, Any]:
     """The dict of a `save_state` directory, each tensor read into an
     empty copy of the template's leaf (its dtype, device and placements)."""
     import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
     want = {"tensors": {}, "static": {}, "classes": {}}
     _flatten(template, "", want, keep=True)
-    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    with open(os.path.join(path, ".metadata"), "rb") as f:
+        meta = _DCPMetadataUnpickler(f).load().state_dict_metadata
     for key, t in want["tensors"].items():
         got = meta.get(f"tensors.{key}")
-        if got is None:
+        # a bytes item would be unpickled by DCP itself
+        if not isinstance(got, TensorStorageMetadata):
             raise ValueError(f"checkpoint has no tensor {key!r}")
         if tuple(got.size) != tuple(t.shape):
             raise ValueError(f"checkpoint tensor {key!r} has shape "
                              f"{tuple(got.size)}, the template "
                              f"{tuple(t.shape)}")
+    saved = torch.load(os.path.join(path, _META), map_location="cpu",
+                       weights_only=True)
     tensors = {k: torch.empty_like(t) for k, t in want["tensors"].items()}
-    box = {"tensors": tensors, "meta": b""}
-    dcp.load(box, storage_reader=dcp.FileSystemReader(path))
-    return dict(pickle.loads(box["meta"]), tensors=box["tensors"])
+    dcp.load({"tensors": tensors},
+             storage_reader=dcp.FileSystemReader(path))
+    return dict(saved, tensors=tensors)
 
 
 def restore_state(path: str, template: Any) -> Any:

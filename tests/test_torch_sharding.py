@@ -10,6 +10,7 @@ in tests/test_torch_distributed.py.  float64, one thread.
 
 import dataclasses
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -210,6 +211,13 @@ def test_item_14b_models_refuse_sharded_state(mesh, name):
         prob.eval_obj_con(xs)
     with pytest.raises(NotImplementedError, match="item 14b"):
         prob.eval_obj_con_gradient(xs)
+    # every evaluation the model's classes define (not Problem's defaults)
+    for cls in type(prob).__mro__:
+        for name in sh._EVALUATIONS:
+            if (cls.__module__.startswith("paropt_torch.models")
+                    and name in vars(cls)):
+                with pytest.raises(NotImplementedError, match="item 14b"):
+                    getattr(prob, name)(xs)
 
 
 def test_fused_eigen_tr_refuses_sharded_state(mesh):
@@ -249,6 +257,38 @@ def test_fused_state_dcp_roundtrip(mesh, tmp_path):
                                          mesh)))
     with pytest.raises(ValueError, match="shape"):
         restore_state(path, other)
+
+
+class _Opens:
+    """Pickles as a call of ``open(path, "w")``: loading it makes the
+    file."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __reduce__(self):
+        return (open, (self.path, "w"))
+
+
+@pytest.mark.parametrize("part", [".metadata", "paropt_state.pt"])
+def test_sharded_checkpoint_runs_no_code_on_load(mesh, tmp_path, part):
+    """A checkpoint directory whose DCP metadata or state metadata was
+    replaced by a pickle that calls a function is refused before the call
+    runs, as ``torch.load(weights_only=True)`` refuses such a file."""
+    fused, data, x0, qn0 = _fused()
+    st = sh.shard_tree(fused.init(x0, data, (), qn0, None), mesh, N)
+    path = tmp_path / "ckpt"
+    save_state(str(path), st)
+    assert {".metadata", "paropt_state.pt"} <= set(os.listdir(path))
+    marker = tmp_path / "ran"
+    with open(path / part, "wb") as f:
+        if part == ".metadata":
+            pickle.dump(_Opens(str(marker)), f)
+        else:
+            torch.save(_Opens(str(marker)), f)
+    with pytest.raises(pickle.UnpicklingError):
+        restore_state(str(path), st)
+    assert not marker.exists()
 
 
 def test_host_ip_sharded_checkpoint_roundtrip(mesh, tmp_path):
