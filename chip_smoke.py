@@ -3,7 +3,17 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits nonzero without the final line):
+Phases (any failure raises and exits nonzero without the final line).
+Phases 1-3b run in this process alone; then phases 4-37 run in five
+child processes of this script at once, all on the one card, each a
+group of phases in order (GROUPS: a phase and the later ones that read
+its results share a group).  Each group's output is printed whole once
+all have ended, with each phase's end on the script's clock; a group that
+fails, or is still running DEADLINE_S seconds after the start, ends every
+group and fails the script.  The card is mostly idle in these phases (the
+host's Python paces them), so their seconds per iteration are taken
+beside four other processes on the same card and host:
+
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit, turns TF32 off and checks it;
@@ -350,11 +360,34 @@ group; a child that fails fails the script:
    multi-rank on the card waits for a machine with two or more cards.
    The kernels line carries each kernel's launches in (a)
    (sharded_launches).
+37. the FEM and eigenvalue models on sharded state (x-strips with explicit
+   halos, paropt_torch/parallel/halo.py), through the worker's cases fem2d,
+   fem3d and eigtr: FusedMMA on FEMTopology(768, 384, cg_iters=25, mgcg)
+   in float64 (3 outer iterations), FusedMMA on FEMTopology3D(160, 80, 80,
+   cg_iters=40, mgcg) in float32 (2), and FusedEigenTR on
+   FrequencyTopology3D(64, 32, 32, N=6, cg_iters=30, mgcg) in float32 (2,
+   phase 26's options: the defaults), each solved warm on plain tensors
+   and then on sharded state in one process.  (a) One NCCL rank: the sharded run takes
+   the plain run's iterations with every fobj within 1e-12 relative in
+   float64 and 1e-5 in float32 (the eigen TR also its KS value; basis-free
+   quantities only, as the 64x32x32 box has a double lowest eigenvalue);
+   max |dx|, seconds per outer iteration, host reads, peak memory, the
+   strips' entries of a fine-level CG vector and their exchanges per CG
+   iteration are printed, and the eigen TR's sharded run must launch
+   qn_roll_update once per outer iteration (fem_sharded_launches in the
+   kernels line).  (b) With four or more cards: the same cases on four
+   NCCL ranks, held to (a) within the same tolerances (the same
+   iterations, the final fobj and infeasibility, the eigen TR's KS
+   value; four ranks sum in another order, so (b)'s largest difference
+   from its own plain run over the iterations is printed, not held),
+   with each rank's peak memory beside (a)'s.
 Only torch and numpy are used.
 """
 
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -448,6 +481,13 @@ def rel_err(torch, got, want):
     return err, err / scale
 
 
+def _no_tf32(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -456,10 +496,7 @@ def phase_device(torch):
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
-    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    _no_tf32(torch)
     log(f"[device] {torch.cuda.get_device_name(0)} "
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
@@ -796,7 +833,7 @@ def _profile_call(torch, fn, names=()):
         window = time.perf_counter() - t0
     t1 = time.perf_counter()
     BUILD.mkdir(exist_ok=True)
-    path = BUILD / "chip_smoke_profile.json"
+    path = BUILD / f"chip_smoke_profile_{os.getpid()}.json"
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
               if e.get("ph") == "X"]
@@ -3357,128 +3394,291 @@ def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
     return ip["launches"]
 
 
+# phase 37's cases: worker size strings (with their dtypes) and tolerances
+FEM37 = {"fem2d": "768,384,25,3:float64", "fem3d": "160,80,80,40,2:float32",
+         "eigtr": "64,32,32,6,30,60,2:float32"}
+
+
+def _fem37_rtol(spec):
+    return RTOL[spec.rpartition(":")[2]]
+
+
+def _fem37_report(torch, tag, ranks, held):
+    """Print and check one launch's three cases (rank 0's figures; every
+    rank must report the same trajectories); ``held``: each sharded run
+    is held to its plain run outer iteration by outer iteration (one rank,
+    where they are the same computation).  Returns rank 0's results."""
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for case in FEM37:
+            check(r[case]["sharded"]["trajectory"]
+                  == r0[case]["sharded"]["trajectory"],
+                  f"{tag} {case}: rank {r['rank']} saw another trajectory")
+    for case, spec in FEM37.items():
+        c = r0[case]
+        plain, shd = c["plain"], c["sharded"]
+        rtol = _fem37_rtol(spec)
+        gib = [(q["peak_bytes"] or 0) / 2**30 for q in (plain, shd)]
+        ratio = (shd["seconds_per_iteration"]
+                 / plain["seconds_per_iteration"])
+        log(f"[fem-sharded] {tag} {case} {spec}: {plain['iterations']} vs "
+            f"{shd['iterations']} outer iterations (plain vs sharded); "
+            f"final fobj {plain['trajectory'][-1]['fobj']:.12e} vs "
+            f"{shd['trajectory'][-1]['fobj']:.12e}; max |dx| "
+            f"{c['max_dx']:.3e}; {plain['seconds_per_iteration']:.4f} vs "
+            f"{shd['seconds_per_iteration']:.4f} s per outer iteration "
+            f"({ratio:.2f}x); "
+            f"host reads {plain['reads']} vs {shd['reads']}; peak memory "
+            f"{gib[0]:.3f} vs {gib[1]:.3f} GiB; launches {plain['launches']}"
+            f" vs {shd['launches']}")
+        if "local" in c:
+            loc = c["local"]
+            log(f"[fem-sharded] {tag} {case}: a fine-level CG vector holds "
+                f"{loc['fine_cg_entries']} entries on rank 0 "
+                f"({loc['node_row_entries']} per node row); the V-cycle "
+                f"gathers at level {loc['gather_point']}; one fine-level CG "
+                f"iteration exchanges {loc['per_cg_iteration']}")
+        dev = max(abs(a["fobj"] - b["fobj"]) / abs(a["fobj"])
+                  for a, b in zip(plain["trajectory"], shd["trajectory"]))
+        log(f"[fem-sharded] {tag} {case}: largest relative fobj difference "
+            f"over the outer iterations {dev:.3e}")
+        if case == "eigtr":
+            log(f"[fem-sharded] {tag} eigtr: KS {plain['ks']:.9e} vs "
+                f"{shd['ks']:.9e}; LOBPCG block iterations {plain['lobpcg']} "
+                f"vs {shd['lobpcg']}")
+            check(not held or abs(shd["ks"] - plain["ks"]) <= rtol * max(
+                1.0, abs(plain["ks"])), f"{tag} eigtr: KS differs")
+            n = shd["iterations"]
+            check(shd["launches"]["qn_roll_update"] == n,
+                  f"{tag} eigtr: {shd['launches']['qn_roll_update']} "
+                  f"qn_roll_update launches in {n} outer iterations")
+        check(plain["iterations"] == shd["iterations"] > 0,
+              f"{tag} {case}: other iteration counts")
+        for a, b in zip(plain["trajectory"], shd["trajectory"]):
+            check(not held or (a["k"] == b["k"] and abs(a["fobj"] - b["fobj"])
+                               <= rtol * abs(a["fobj"])),
+                  f"{tag} {case}: fobj differs at outer iteration {a['k']}: "
+                  f"{a['fobj']} vs {b['fobj']}")
+        check(all(math.isfinite(t["fobj"]) for t in shd["trajectory"]),
+              f"{tag} {case}: a non-finite fobj")
+    return r0
+
+
+def phase_fem_sharded(torch):
+    """37: the FEM and eigen models on x-strips; returns (a)'s launches of
+    the sharded eigen TR."""
+    import shutil
+    t_phase = time.perf_counter()
+    base = BUILD / "phase37"
+    shutil.rmtree(base, ignore_errors=True)
+    # the eigen TR with phase 26's options (the registry's defaults)
+    args = ["--cases", ",".join(FEM37), "--eig-options", json.dumps(
+        {"output_file": None, "tr_output_file": None})] + [
+        a for case, spec in FEM37.items() for a in (f"--{case}", spec)]
+    a = _fem37_report(torch, "(a)", _ranks(1, base / "a", *args), True)
+    for case in FEM37:
+        if a[case]["max_dx"] == 0.0:
+            log(f"[fem-sharded] (a) {case}: the sharded run equals the "
+                f"plain run bit for bit")
+    count = torch.cuda.device_count()
+    if count >= 4:
+        # four ranks sum in another order than one: (b) is held to (a)
+        b = _fem37_report(torch, "(b)", _ranks(4, base / "b", *args), False)
+        for case, spec in FEM37.items():
+            rtol = _fem37_rtol(spec)
+            pa, pb = a[case]["sharded"], b[case]["sharded"]
+            log(f"[fem-sharded] (b) {case} against (a): iterations "
+                f"{pb['iterations']} vs {pa['iterations']}, final fobj "
+                f"{pb['trajectory'][-1]['fobj']:.12e} vs "
+                f"{pa['trajectory'][-1]['fobj']:.12e}; peak memory per "
+                f"rank {(pb['peak_bytes'] or 0) / 2**30:.3f} vs "
+                f"{(pa['peak_bytes'] or 0) / 2**30:.3f} GiB")
+            check(pb["iterations"] == pa["iterations"],
+                  f"(b) {case}: another iteration count than (a)")
+            fa, fb = pa["trajectory"][-1]["fobj"], pb["trajectory"][-1]["fobj"]
+            check(abs(fa - fb) <= rtol * abs(fa),
+                  f"(b) {case}: fobj differs from (a)")
+            ia, ib = (p["trajectory"][-1]["infeas"] for p in (pa, pb))
+            check(abs(ia - ib) <= rtol * max(1.0, abs(ia)),
+                  f"(b) {case}: infeasibility differs from (a)")
+            if case == "eigtr":
+                check(abs(pa["ks"] - pb["ks"]) <= rtol * max(
+                    1.0, abs(pa["ks"])), "(b) eigtr: KS differs from (a)")
+    else:
+        log(f"[fem-sharded] (b) not run: {count} card(s), four needed")
+    log(f"[fem-sharded] phase 37 took {time.perf_counter() - t_phase:.2f} s")
+    return a["eigtr"]["sharded"]["launches"]
+
+
+# phases 4-37 as steps on a shared dict: each reads what an earlier step of
+# its group left there; the entries ending in "_launches" (phase 4's is
+# "launches") are the kernels line's columns
+STEPS = {
+    "4": lambda t, c: c.update(zip(("launches", "ip_iters", "ip_fobj",
+                                    "ip_x"), phase_slice(t))),
+    "5": lambda t, c: phase_crosscheck(t),
+    "6": lambda t, c: [phase_mma_full(t, d, iters=10)
+                       for d in (t.float32, t.float64)],
+    "7": lambda t, c: c.update(zip(("mma_fobj", "mma_x", "mma_files"),
+                                   phase_mma_bench(t))),
+    "8": lambda t, c: phase_mma_crosscheck(t),
+    "9": lambda t, c: c.update(zip(("tr_launches", "tr_niter", "tr_fobj"),
+                                   phase_tr_full(t))),
+    "10": lambda t, c: phase_tr_bench(t),
+    "11": lambda t, c: phase_tr_crosscheck(t),
+    "12": lambda t, c: c.update(host_tr_launches=phase_host_tr_full(
+        t, c["tr_niter"], c["tr_fobj"])),
+    "13": lambda t, c: c.update(zip(("host_ip_launches", "host_ip_iters"),
+                                    phase_host_ip_full(t, c["ip_iters"]))),
+    "14": lambda t, c: phase_host_mma(t),
+    "15": lambda t, c: phase_host_crosscheck(t),
+    "16": lambda t, c: c.update(nk_launches=phase_nk_full(
+        t, c["ip_iters"], c["host_ip_iters"])),
+    "17": lambda t, c: phase_nk_crosscheck(t),
+    "18": lambda t, c: phase_mma3d_full(t),
+    "19": lambda t, c: phase_mma3d_bench(t),
+    "20": lambda t, c: phase_3d_crosscheck(t),
+    "21": lambda t, c: c.update(batched_launches=phase_batched_ip(t)),
+    "22": lambda t, c: phase_batched_small(t),
+    "23": lambda t, c: phase_batched_mma(t),
+    "24": lambda t, c: c.update(batched_tr_launches=phase_batched_tr(t)),
+    "25": lambda t, c: phase_batched_crosscheck(t),
+    "26": lambda t, c: c.update(zip(("eig_launches", "eig_s_per_iter"),
+                                    phase_eig3d_full(t))),
+    "27": lambda t, c: phase_eig_bench(t),
+    "28": lambda t, c: c.update(eig_singles=phase_eig_crosscheck(t)),
+    "29": lambda t, c: c.update(csr_launches=phase_csr_full(t)),
+    "30": lambda t, c: c.update(zip(("electron_launches", "ssto_launches"),
+                                    phase_cops_ssto(t))),
+    "31": lambda t, c: phase_csr_crosscheck(t),
+    "32": lambda t, c: c.update(eig_batched_launches=phase_eig3d_batched(
+        t, c["eig_s_per_iter"])),
+    "33": lambda t, c: c.update(
+        eig_batched_f64_launches=phase_eig_batched_crosscheck(
+            t, c["cpu_job"], c["eig_singles"])),
+    "34": lambda t, c: c.update(zip(
+        ("ckpt_ip_launches", "ckpt_host_ip_launches"), phase_checkpoints(
+            t, c["ip_iters"], c["ip_fobj"], c["ip_x"], c["mma_fobj"],
+            c["mma_x"], c["mma_files"]))),
+    "35": lambda t, c: c.update(zip(
+        ("compat_launches", "compat_native_launches", "function_launches"),
+        phase_surface(t))),
+    "36": lambda t, c: c.update(sharded_launches=phase_sharded(
+        t, c["launches"], c["ip_iters"], c["ip_fobj"], c["ip_x"])),
+    "37": lambda t, c: c.update(fem_sharded_launches=phase_fem_sharded(t)),
+}
+# after phase 3, each group runs in a process of its own, all at once on
+# the one card: the phases keep the card mostly idle (their hosts' Python
+# paces them, PERF.md), so one after another they took 880-1,050 s of the
+# script's 1,200 and more on a slower host.  A group holds the phases
+# whose results another of its phases reads; the groups are of about
+# equal length
+GROUPS = (("4", "5", "6", "7", "8", "13", "16", "34", "36"),
+          ("9", "10", "11", "12", "14", "15", "17", "18", "19", "20"),
+          ("21", "22", "23", "24", "25", "37"),
+          ("26", "27", "29", "30", "31", "32"),
+          ("28", "33", "35"))
+DEADLINE_S = 1100    # from the script's start; the groups are then ended
+
+
+def _stamp(t0, phase):
+    log(f"[time] phase {phase} done at {time.time() - t0:.1f} s")
+
+
+def _run_group(torch, index, t0):
+    """One group's phases (a child process); writes its launch columns."""
+    _no_tf32(torch)
+    ctx = {}
+    if "33" in GROUPS[index]:
+        # phase 33's CPU batched solves run in a child process meanwhile
+        ctx["cpu_job"] = _eig33_cpu_start()
+    try:
+        for phase in GROUPS[index]:
+            STEPS[phase](torch, ctx)
+            _stamp(t0, phase)
+    finally:
+        job = ctx.get("cpu_job")
+        if job is not None and job.poll() is None:
+            job.kill()
+            job.wait()
+    (BUILD / f"chip_smoke_group{index}.json").write_text(json.dumps(
+        {k: v for k, v in ctx.items() if k.endswith("launches")}))
+
+
+def _run_groups(t0):
+    """Start every group at once and wait for all; print each group's
+    output in turn.  A group that fails or outlasts the deadline ends all
+    of them (each with the processes it started) and fails the script.
+    Returns the groups' launch columns."""
+    procs, logs = [], []
+    try:
+        for i, group in enumerate(GROUPS):
+            logs.append(BUILD / f"chip_smoke_group{i}.log")
+            (BUILD / f"chip_smoke_group{i}.json").unlink(missing_ok=True)
+            with open(logs[-1], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--group",
+                     str(i), "--t0", repr(t0)], cwd=str(ROOT), stdout=out,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+            log(f"[groups] group {i} (phases {', '.join(group)}) started, "
+                f"pid {procs[-1].pid}")
+        failed = None
+        while failed is None and any(p.poll() is None for p in procs):
+            if time.time() - t0 > DEADLINE_S:
+                failed = (None, f"still running after {DEADLINE_S} s")
+            for i, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    failed = (i, f"group {i} exited with {p.returncode}")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None or failed is not None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                p.wait()
+    for i, group in enumerate(GROUPS):
+        log(f"[groups] group {i} (phases {', '.join(group)}): "
+            f"exit {procs[i].returncode}")
+        sys.stdout.write(logs[i].read_text())
+        sys.stdout.flush()
+    if failed is None and any(p.returncode for p in procs):
+        failed = (None, "a group failed")
+    check(failed is None, failed and failed[1])
+    cols = {}
+    for i in range(len(GROUPS)):
+        cols.update(json.loads(
+            (BUILD / f"chip_smoke_group{i}.json").read_text()))
+    return cols
+
+
 def main():
     import torch
     check((ROOT / "paropt_torch" / "csrc").is_dir(),
           f"paropt_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
-    t_start = time.perf_counter()
-
-    def stamp(phase):
-        log(f"[time] phase {phase} done at "
-            f"{time.perf_counter() - t_start:.1f} s")
-
+    if "--group" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        _run_group(torch, int(args["--group"]), float(args["--t0"]))
+        return
+    t0 = time.time()
     phase_device(torch)
-    stamp("1")
+    _stamp(t0, "1")
     phase_build()
-    stamp("2")
+    _stamp(t0, "2")
     timing = phase_kernels(torch)
-    stamp("3")
+    _stamp(t0, "3")
     phase_kernels_batched(torch, timing)
-    stamp("3b")
-    launches, ip_iters, ip_fobj, ip_x = phase_slice(torch)
-    stamp("4")
-    phase_crosscheck(torch)
-    stamp("5")
-    for dtype in (torch.float32, torch.float64):
-        phase_mma_full(torch, dtype, iters=10)
-    stamp("6")
-    mma_fobj, mma_x, mma_files = phase_mma_bench(torch)
-    stamp("7")
-    phase_mma_crosscheck(torch)
-    stamp("8")
-    tr_launches, tr_niter, tr_fobj = phase_tr_full(torch)
-    stamp("9")
-    phase_tr_bench(torch)
-    stamp("10")
-    phase_tr_crosscheck(torch)
-    stamp("11")
-    host_tr_launches = phase_host_tr_full(torch, tr_niter, tr_fobj)
-    stamp("12")
-    host_ip_launches, host_ip_iters = phase_host_ip_full(torch, ip_iters)
-    stamp("13")
-    phase_host_mma(torch)
-    stamp("14")
-    phase_host_crosscheck(torch)
-    stamp("15")
-    nk_launches = phase_nk_full(torch, ip_iters, host_ip_iters)
-    stamp("16")
-    phase_nk_crosscheck(torch)
-    stamp("17")
-    phase_mma3d_full(torch)
-    stamp("18")
-    phase_mma3d_bench(torch)
-    stamp("19")
-    phase_3d_crosscheck(torch)
-    stamp("20")
-    batched_launches = phase_batched_ip(torch)
-    stamp("21")
-    phase_batched_small(torch)
-    stamp("22")
-    phase_batched_mma(torch)
-    stamp("23")
-    batched_tr_launches = phase_batched_tr(torch)
-    stamp("24")
-    phase_batched_crosscheck(torch)
-    stamp("25")
-    # phase 33's CPU batched solves run in a child process meanwhile
-    cpu_job = _eig33_cpu_start()
-    try:
-        eig_launches, eig_s_per_iter = phase_eig3d_full(torch)
-        stamp("26")
-        phase_eig_bench(torch)
-        stamp("27")
-        eig_singles = phase_eig_crosscheck(torch)
-        stamp("28")
-        csr_launches = phase_csr_full(torch)
-        stamp("29")
-        electron_launches, ssto_launches = phase_cops_ssto(torch)
-        stamp("30")
-        phase_csr_crosscheck(torch)
-        stamp("31")
-        eig_batched_launches = phase_eig3d_batched(torch, eig_s_per_iter)
-        stamp("32")
-        eig_batched_f64_launches = phase_eig_batched_crosscheck(
-            torch, cpu_job, eig_singles)
-        stamp("33")
-    finally:
-        if cpu_job.poll() is None:
-            cpu_job.kill()
-            cpu_job.wait()
-    ckpt_ip_launches, ckpt_host_ip_launches = phase_checkpoints(
-        torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x, mma_files)
-    stamp("34")
-    compat_launches, compat_native_launches, function_launches = \
-        phase_surface(torch)
-    stamp("35")
-    sharded_launches = phase_sharded(torch, launches, ip_iters, ip_fobj,
-                                     ip_x)
-    stamp("36")
+    _stamp(t0, "3b")
+    cols = _run_groups(t0)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "tr_launches": tr_launches[name],
-                     "host_tr_launches": host_tr_launches[name],
-                     "host_ip_launches": host_ip_launches[name],
-                     "nk_launches": nk_launches[name],
-                     "batched_launches": batched_launches[name],
-                     "batched_tr_launches": batched_tr_launches[name],
-                     "eig_launches": eig_launches[name],
-                     "csr_launches": csr_launches[name],
-                     "electron_launches": electron_launches[name],
-                     "ssto_launches": ssto_launches[name],
-                     "eig_batched_launches": eig_batched_launches[name],
-                     "eig_batched_f64_launches":
-                         eig_batched_f64_launches[name],
-                     "ckpt_ip_launches": ckpt_ip_launches[name],
-                     "ckpt_host_ip_launches": ckpt_host_ip_launches[name],
-                     "compat_launches": compat_launches[name],
-                     "compat_native_launches":
-                         compat_native_launches[name],
-                     "function_launches": function_launches[name],
-                     "sharded_launches": sharded_launches[name],
+                     "replaces": replaces,
+                     **{key: cols[key][name] for key in sorted(
+                         cols, key=lambda k: k != "launches")},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,

@@ -38,7 +38,7 @@ from .ip import HostSyncs
 from .ip_fused import _Run
 from .ops import qn as qnmod
 from .ops.kkt import ProblemData
-from .parallel.sharding import refuse_sharded
+from .parallel.sharding import spmd
 from .tr import (FusedTROptions, QPParams, _add_row, _fused_ip_options,
                  _inner_solve, _qp_Bp, _tr_kkt, _tr_penalties, _tr_radius,
                  _tr_rho, _viol, make_qp_model)
@@ -409,6 +409,7 @@ class FusedEigenTR:
             inf_model, qp_opts, inf_opts, to, index, lbv, ubv, d_tmpl,
             host=self.syncs)
 
+    @spmd
     def solve(self, state0: Optional[FusedEigTRState] = None, chunk="auto",
               checkpoint_path=None):
         """Run the outer loop, reading ``converged`` after each outer
@@ -419,14 +420,16 @@ class FusedEigenTR:
         ``write_output(it, x)`` fires every ``tr_write_output_frequency``
         outer iterations, and ``checkpoint_path`` gets the full state at
         the same cadence (`utils.checkpoint`).  ``chunk`` other than "auto"
-        or None raises: the chunked solve is not ported."""
+        or None raises: the chunked solve is not ported.  A ``state0``
+        placed on a device mesh (`parallel.sharding.shard_tree`) runs
+        sharded: the QP and the QN update on DTensors, the problem's
+        ``eval_full`` on its x-strips (`parallel.halo`)."""
         from .utils.chunked import make_write_output_hook, user_write_output
         if chunk not in ("auto", None):
             raise NotImplementedError("the chunked solve is not ported yet")
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
                                       checkpoint_path=checkpoint_path)
-        refuse_sharded("FusedEigenTR", state0)
         state = state0 if state0 is not None else self._state0
         for _ in range(self._to.max_iterations):
             state = self._step(state)

@@ -23,10 +23,16 @@ eigen-TR's evaluation) reduces it in the compute dtype and can warm-start
 LOBPCG from the previous basis.  LOBPCG reads its exit test on the host
 once per block iteration: ``syncs`` counts those reads and
 ``lobpcg_iters_log`` records each eigensolve's block iterations.
+
+On a sharded design vector the models evaluate on their x-strips
+(`_strip_view`, `parallel.halo`): the FEM's strip view, LOBPCG's blocks
+whole on every rank, S applied on strips and gathered once per
+application.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -37,16 +43,17 @@ from torch.profiler import record_function
 from ..dtypes import resolve_device, resolve_dtype
 from ..ip import HostSyncs
 from ..ops.lobpcg import lobpcg_standard, lobpcg_standard_batched
-from ..parallel.sharding import refuses_sharded
+from ..parallel import halo
+from ..parallel.halo import strip_evaluations
 from ..problem import Problem
-from .fem_topology import FEMTopology
+from .fem_topology import FEMTopology, _view_of
 from .fem_topology3d import (_CORNERS3D, FEMTopology3D, _from_grid3, _sl,
                              _to_grid3)
 
 __all__ = ["FrequencyTopology", "FrequencyTopology3D"]
 
 
-@refuses_sharded
+@strip_evaluations
 class _FrequencyBase(Problem):
     """The KS aggregate and its eigen model, shared by the 2-D and 3-D
     models.  Subclasses set ``fem``, ``N``, ``ks_rho``, ``rho_min``, ``lb``,
@@ -99,15 +106,28 @@ class _FrequencyBase(Problem):
                              out_dims=1)
 
         def S(vblock):                       # [ndof, k] -> [ndof, k]
-            return msqrt[:, None] * cg(msqrt[:, None] * vblock)
+            return self._whole_rows(
+                msqrt[:, None] * cg(msqrt[:, None] * self._own_rows(vblock)))
 
         X = self._X0 if V0 is None else V0
         with record_function("paropt.eig.lobpcg"):
             mu, V, iters = lobpcg_standard(S, X, m=self.lobpcg_iters,
                                            syncs=self.syncs)
         self.lobpcg_iters_log.append(iters)
-        lam, W = self._eig_post(x, xf, msqrt, mu, V)
+        lam, W = self._eig_post(x, xf, msqrt, mu, self._own_rows(V))
         return lam, W, V
+
+    @staticmethod
+    def _own_rows(v):
+        """A whole basis block's rows this model's FEM holds (the strip
+        view's: its strip's)."""
+        return v
+
+    @staticmethod
+    def _whole_rows(v):
+        """The whole block of which ``v`` holds this model's rows (the
+        strip view gathers the strips)."""
+        return v
 
     def _eig_fn_batched(self, xs, V0=None):
         """`_eig_fn` of kb instances: xs [kb, nvars], V0 [kb, ndof, N] or
@@ -163,7 +183,7 @@ class _FrequencyBase(Problem):
     # -- the Problem surface (the constraint is not differentiable through
     #    the eigensolve: its gradient is the analytic one) ----------------
     def objective(self, x):
-        return torch.mean(self.fem._filter(x))
+        return self.fem._mean(self.fem._filter(x))
 
     def eval_obj_con(self, x):
         ev = self._eval(x)
@@ -266,6 +286,24 @@ class _FrequencyBase(Problem):
         self.update_eigen_model(x0, eigh)
         return sub, eigh
 
+    def _strip_view(self, mesh):
+        """The model on this rank's x-strip (`parallel.halo`): the FEM's
+        strip view, and the eigensolve's operator S on strips
+        (`_own_rows`, `_whole_rows`).  LOBPCG's blocks stay whole on every
+        rank: S takes each block's strip rows (no exchange: the block is
+        replicated), runs the strips' CG on them and gathers the result
+        whole, once per application; every rank then runs the same
+        Rayleigh-Ritz."""
+        view = _view_of(self)
+        view.fem = self.fem._strip_view(mesh)
+        view._cache = {}
+        s = view.fem._strips
+        row = view.fem.ndof // (s.m + 1)
+        view._own_rows = functools.partial(s.node_rows, row=row)
+        view._whole_rows = lambda v: halo.gather_rows(
+            v.reshape(s.m + 1, row, -1), -3, s).reshape(-1, v.shape[-1])
+        return view
+
     def frequencies(self, x):
         """The N lowest natural frequencies sqrt(lam) at x."""
         return np.sqrt(np.maximum(self._eval(x)["lam"], 0.0))
@@ -364,6 +402,7 @@ class FrequencyTopology3D(_FrequencyBase):
         for a, b, c in _CORNERS3D:
             t = F.pad(rg, (c, 1 - c, b, 1 - b, a, 1 - a))
             m = t if m is None else m + t
+        m = fem._node_sum(m)
         mg = torch.where(fem._fixed_g > 0, 0.0,
                          torch.broadcast_to(m[None], fem._fixed_g.shape))
         return mg, _from_grid3(mg)

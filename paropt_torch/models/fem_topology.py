@@ -17,6 +17,10 @@ forward solve's u with no second solve and no autograd through CG
 (`_Compliance`).  CG and the V-cycle read nothing on the host: the
 breakdown guards are tensor ``where``s and the coarsest level is solved
 with the factor of ``torch.linalg.cholesky_ex``.
+
+On a design vector sharded over a device mesh each rank evaluates on its
+x-strip of the mesh (`_FEMStrip`, `parallel.halo`), where GSPMD turns the
+JAX model's slices and pads into halo exchanges by itself.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
-from ..parallel.sharding import refuses_sharded
+from ..parallel import halo
+from ..parallel.halo import strip_evaluations
 from ..problem import Problem, SparseJacobian
 
 __all__ = ["FEMTopology", "DMOFEMTopology"]
@@ -166,7 +171,7 @@ class _Compliance(torch.autograd.Function):
         return ctx.model._compliance_vjp(x, u, ct), None
 
 
-@refuses_sharded
+@strip_evaluations
 class FEMTopology(Problem):
     """The 2-D SIMP compliance problem.  ``device`` holds every array; the
     constructor turns TF32 off for float32 matrix products, without which
@@ -292,7 +297,22 @@ class FEMTopology(Problem):
 
     def _scatter_elem(self, fe):
         """Adjoint of _gather_elem."""
-        return _scatter2d(fe, self.nex, self.ney)
+        return self._scatter_level(fe, self.nex, self.ney)
+
+    def _scatter_level(self, fe, cx, cy):
+        """`_scatter2d` on a multigrid level (the strip view adds the
+        neighbours' parts of the shared node rows)."""
+        return _scatter2d(fe, cx, cy)
+
+    def _dot(self, a, b):
+        """<a, b> of two nodal vectors (the strip view's sums its owned
+        rows over the ranks)."""
+        return dot(a, b)
+
+    def _mean(self, t):
+        """The mean of an element field (the strip view's over the
+        ranks)."""
+        return torch.mean(t)
 
     # -- FEM ------------------------------------------------------------
     def _kmul(self, E, u):
@@ -313,25 +333,38 @@ class FEMTopology(Problem):
         matrix is SPD).  u may carry leading batch dims."""
         u0 = torch.where(fixed > 0, 0.0, u)
         fe = (_gather2d(u0, cx, cy) @ self.KE) * El[:, None]
-        return torch.where(fixed > 0, u, _scatter2d(fe, cx, cy))
+        return torch.where(fixed > 0, u, self._scatter_level(fe, cx, cy))
 
     def _mg_setup(self, E):
         """Per-level (E_l, diag_l) from the fine element moduli (2x2 mean
         pooling) + the Cholesky factor of the coarsest-level matrix,
         assembled by applying `_kmul_level` to the identity's columns."""
-        Eg = E.reshape(self.nex, self.ney)
+        return self._mg_levels(E.reshape(self.nex, self.ney), 0)
+
+    def _mg_pool(self, Eg, l0, l1):
+        """(levels l0 .. l1-1, level l1's element grid) from level l0's
+        element grid Eg: per level (E_l, diag_l, fixed_l, cx, cy), each
+        next grid by 2x2 mean pooling."""
         levels = []
-        for li, (cx, cy) in enumerate(self._mg_dims):
+        for li in range(l0, l1):
+            cx, cy = Eg.shape
             El = Eg.reshape(-1)
             fixed = self._mg_fixed[li]
-            diag = _scatter2d(self._ke_diag[None, :] * El[:, None], cx, cy)
+            diag = self._scatter_level(
+                self._ke_diag[None, :] * El[:, None], cx, cy)
             diag = torch.where(fixed > 0, 1.0, torch.clamp(diag, min=1e-12))
             levels.append((El, diag, fixed, cx, cy))
             if li + 1 < len(self._mg_dims):
                 Eg = Eg.reshape(cx // 2, 2, cy // 2, 2).mean(dim=(1, 3))
+        return levels, Eg
+
+    def _mg_levels(self, Eg, l0):
+        """(levels l0.., the coarsest level's Cholesky factor) from level
+        l0's element grid."""
+        levels, _ = self._mg_pool(Eg, l0, len(self._mg_dims))
         El, _, fixed, cx, cy = levels[-1]
         ndc = 2 * (cx + 1) * (cy + 1)
-        eye = torch.eye(ndc, dtype=E.dtype, device=E.device)
+        eye = torch.eye(ndc, dtype=El.dtype, device=El.device)
         # row i of the batched product is K e_i: transpose to columns
         Kc = self._kmul_level(El, eye, cx, cy, fixed).T
         chol = torch.linalg.cholesky_ex(Kc).L
@@ -341,31 +374,30 @@ class FEMTopology(Problem):
         """One symmetric V-cycle (weighted-Jacobi smoothing, bilinear
         transfer, dense coarse solve); SPD for fixed smoothing counts, so
         plain CG accepts it as preconditioner."""
+        return self._mg_cycle(levels, chol, 0, r)
+
+    def _mg_cycle(self, levels, chol, l, r):
+        """The V-cycle from level l down."""
         nu, om = self.mg_smooth, self.mg_omega
+        El, diag, fixed, cx, cy = levels[l]
+        if l == len(levels) - 1:
+            y = torch.linalg.solve_triangular(chol, r[:, None], upper=False)
+            e = torch.linalg.solve_triangular(chol.T, y, upper=True)
+            return torch.where(fixed > 0, 0.0, e[:, 0])
 
-        def cycle(l, r):
-            El, diag, fixed, cx, cy = levels[l]
-            if l == len(levels) - 1:
-                y = torch.linalg.solve_triangular(chol, r[:, None],
-                                                  upper=False)
-                e = torch.linalg.solve_triangular(chol.T, y, upper=True)
-                return torch.where(fixed > 0, 0.0, e[:, 0])
+        def kmul(v):
+            return self._kmul_level(El, v, cx, cy, fixed)
 
-            def kmul(v):
-                return self._kmul_level(El, v, cx, cy, fixed)
-
-            e = (om / diag) * r
-            for _ in range(nu - 1):
-                e = e + (om / diag) * (r - kmul(e))
-            rc = self._mg_restrict[l](r - kmul(e))
-            rc = torch.where(levels[l + 1][2] > 0, 0.0, rc)
-            e = e + torch.where(fixed > 0, 0.0,
-                                self._mg_prolong[l](cycle(l + 1, rc)))
-            for _ in range(nu):
-                e = e + (om / diag) * (r - kmul(e))
-            return e
-
-        return cycle(0, r)
+        e = (om / diag) * r
+        for _ in range(nu - 1):
+            e = e + (om / diag) * (r - kmul(e))
+        rc = self._mg_restrict[l](r - kmul(e))
+        rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
+        e = e + torch.where(fixed > 0, 0.0, self._mg_prolong[l](
+            self._mg_cycle(levels, chol, l + 1, rc)))
+        for _ in range(nu):
+            e = e + (om / diag) * (r - kmul(e))
+        return e
 
     def _cg(self, E, b):
         """Preconditioned CG on K(E) u = b for a general RHS (fixed dofs
@@ -393,17 +425,17 @@ class FEMTopology(Problem):
         u = torch.zeros(self.ndof, dtype=self._dtype, device=self._device)
         r = b
         p = precond(b)
-        rz = dot(b, p)
+        rz = self._dot(b, p)
         for _ in range(self.cg_iters):
             Kp = self._kmul(E, p)
-            pKp = dot(p, Kp)
+            pKp = self._dot(p, Kp)
             # rounded-to-nonpositive curvature: freeze instead of blowing up
             alpha = torch.where(pKp > tiny,
                                 rz / torch.where(pKp > tiny, pKp, 1.0), 0.0)
             u = u + alpha * p
             r = r - alpha * Kp
             z = precond(r)
-            rz_new = dot(r, z)
+            rz_new = self._dot(r, z)
             # degenerate rz: restart with the steepest-descent direction
             beta = torch.where(rz > tiny,
                                rz_new / torch.where(rz > tiny, rz, 1.0), 0.0)
@@ -417,7 +449,7 @@ class FEMTopology(Problem):
 
     def _state(self, xf):
         u = self._solve(self._simp(xf))
-        return dot(self.f, u), u
+        return self._dot(self.f, u), u
 
     def _element_energies(self, u):
         """u_e' k0 u_e for every element."""
@@ -436,7 +468,8 @@ class FEMTopology(Problem):
         return self.c_scale * self._compliance(self._filter(x))
 
     def constraints(self, x):
-        return (self.volume_fraction - torch.mean(self._filter(x))).reshape(1)
+        return (self.volume_fraction
+                - self._mean(self._filter(x))).reshape(1)
 
     def sparse_constraints(self, x):
         # region caps act on the RAW densities, keeping the weighting
@@ -447,6 +480,9 @@ class FEMTopology(Problem):
     def sparse_jacobian(self, x):
         return self._jac
 
+    def _strip_view(self, mesh):
+        return _FEMStrip(self, mesh)
+
     def get_vars_and_bounds(self):
         kw = dict(dtype=self._dtype, device=self._device)
         ne = self.nvars
@@ -454,7 +490,7 @@ class FEMTopology(Problem):
                 torch.full((ne,), 1e-3, **kw), torch.ones(ne, **kw))
 
 
-@refuses_sharded
+@strip_evaluations
 class DMOFEMTopology(Problem):
     """Multi-material (Discrete Material Optimization) 2-D compliance
     problem: per-element material weights with one "weights sum <= 1"
@@ -503,7 +539,7 @@ class DMOFEMTopology(Problem):
 
     def _state(self, x):
         u = self.fem._solve(self._modulus(x))
-        return dot(self.fem.f, u), u
+        return self.fem._dot(self.fem.f, u), u
 
     def _compliance_vjp(self, x, u, ct):
         energies = self.fem._element_energies(u)               # [ne]
@@ -520,7 +556,7 @@ class DMOFEMTopology(Problem):
         return self.c_scale * self._compliance(x)
 
     def constraints(self, x):
-        mass = torch.mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
+        mass = self.fem._mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
 
     def sparse_constraints(self, x):
@@ -528,6 +564,12 @@ class DMOFEMTopology(Problem):
 
     def sparse_jacobian(self, x):
         return self._jac
+
+    def _strip_view(self, mesh):
+        view = _view_of(self)
+        view.fem = self.fem._strip_view(mesh)
+        view.ne = view.fem.nex * view.fem.ney
+        return view
 
     def get_vars_and_bounds(self):
         kw = dict(dtype=self._dtype, device=self._device)
@@ -541,3 +583,125 @@ class DMOFEMTopology(Problem):
         idx = xm.argmax(axis=1)
         idx[xm.max(axis=1) < 0.3] = -1
         return idx
+
+
+def _fields_of(model) -> dict:
+    """A model's attributes but its cached strip views."""
+    return {k: v for k, v in vars(model).items() if k != "_strip_views"}
+
+
+def _view_of(model):
+    """A shallow copy of ``model`` to become its strip view."""
+    view = object.__new__(type(model))
+    view.__dict__.update(_fields_of(model))
+    return view
+
+
+def mg_gather_level(dims, P: int) -> int:
+    """The multigrid level at which the strips of P ranks stop: the first
+    level whose rows per rank are odd (its strips cannot be halved), or
+    the coarsest.  From it down, the V-cycle runs whole on every rank."""
+    g = 0
+    while g < len(dims) - 1 and (dims[g][0] // P) % 2 == 0:
+        g += 1
+    return g
+
+
+class _FEMStrip(FEMTopology):
+    """`FEMTopology` on this rank's x-strip of the mesh (`parallel.halo`):
+    m = nex / P element rows and m + 1 node rows, the last a ghost row
+    (this rank's last when it is the last rank).  The element products
+    scatter locally and add the neighbours' parts of the shared rows
+    (`halo.halo_add`), the dots sum the owned rows over the ranks, the
+    filter borrows the periodic neighbours' rows (`halo.wrap_rows`), and
+    the V-cycle runs on strips down to `mg_gather_level`, where it gathers
+    the residual and runs the rest, the coarse Cholesky solve included,
+    whole on every rank.  Built by `FEMTopology._strip_view`; the sharded
+    evaluations run it under ``local_map`` (`halo.run_on_strips`)."""
+
+    def __init__(self, whole: FEMTopology, mesh):
+        self.__dict__.update(_fields_of(whole))
+        s = halo.Strips(mesh, whole.nex, type(whole).__name__)
+        dims = whole._mg_dims
+        g = mg_gather_level(dims, s.P)
+        if whole.solver == "mgcg" and len(dims) > 1 and g == 0:
+            raise ValueError(
+                f"{type(whole).__name__} with solver='mgcg' on sharded "
+                f"state needs an even number of element rows per rank "
+                f"(nex / P = {s.m}): the V-cycle restricts on the strips")
+        self._whole, self._strips, self._mg_gather = whole, s, g
+        row = 2 * (whole.ney + 1)
+        self.nex, self.ndof = s.m, (s.m + 1) * row
+        self.fixed_mask = s.node_rows(whole.fixed_mask, row)
+        self.f = s.node_rows(whole.f, row)
+        # levels 0 .. g on strips (level g's only for the gather)
+        self._level_strips = [s.level(cx) for cx, _ in dims[:g + 1]]
+        self._mg_fixed = [ls.node_rows(whole._mg_fixed[l], 2 * (cy + 1))
+                          for l, (ls, (_, cy)) in enumerate(
+                              zip(self._level_strips, dims))]
+        self._mg_prolong = [_prolong2d(self._level_strips[l + 1].m,
+                                       dims[l + 1][1]) for l in range(g)]
+        self._mg_restrict = [self._restrict_strip(l) for l in range(g)]
+
+    def _restrict_strip(self, l):
+        """`_restrict2d` on level l's strips: the ghost row zeroed so each
+        shared fine row counts once, then the coarse shared rows summed."""
+        s = self._level_strips[l]
+        cx, cy = s.m // 2, self._whole._mg_dims[l + 1][1]
+
+        def restrict(r_flat):
+            r = s.zero_ghost(r_flat.reshape(2 * cx + 1, 2 * cy + 1, 2), -3)
+            for ax in (1, 0):
+                r = _interleave_t(r, ax)
+            return halo.halo_add(r, -3, s).reshape(-1)
+
+        return restrict
+
+    def _scatter_level(self, fe, cx, cy):
+        out = _scatter2d(fe, cx, cy)
+        if self._strips.P == 1:
+            return out
+        lead = out.shape[:-1]
+        return halo.halo_add(out.reshape(lead + (cx + 1, -1)), -2,
+                             self._strips).reshape(lead + (-1,))
+
+    def _dot(self, a, b):
+        s = self._strips
+        return halo.allreduce(dot(s.owned_flat(a), s.owned_flat(b)), s)
+
+    def _mean(self, t):
+        s = self._strips
+        if s.P == 1:
+            return torch.mean(t)
+        return halo.allreduce(torch.sum(t), s) / (t.numel() * s.P)
+
+    def _filter(self, x):
+        s = self._strips
+        if self.rfil <= 0 or s.P == 1:
+            return super()._filter(x)
+        xg = x.reshape(self.nex, self.ney)
+        ext = halo.wrap_rows(xg, -2, s)
+        acc = xg
+        cnt = torch.ones_like(xg)
+        for dx, dy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+            # a roll by dx rows reads row i - dx: ext's row i + 1 - dx
+            acc = acc + (ext[1 - dx:1 - dx + self.nex] if dx
+                         else torch.roll(xg, dy, dims=1))
+            cnt = cnt + 1.0
+        return (acc / cnt).reshape(-1)
+
+    def _mg_setup(self, E):
+        g = self._mg_gather
+        levels, Eg = self._mg_pool(E.reshape(self.nex, self.ney), 0, g)
+        Eg = halo.gather_rows(Eg, -2, self._level_strips[g], ghost=False)
+        rest, chol = self._whole._mg_levels(Eg, g)
+        return levels + rest, chol
+
+    def _mg_cycle(self, levels, chol, l, r):
+        if l < self._mg_gather:
+            return super()._mg_cycle(levels, chol, l, r)
+        s = self._level_strips[l]
+        row = 2 * (levels[l][4] + 1)
+        r = halo.gather_rows(r.reshape(s.m + 1, row), -2, s).reshape(-1)
+        e = self._whole._mg_cycle(levels, chol, l, r)
+        return s.node_rows(e, row, axis=-1)

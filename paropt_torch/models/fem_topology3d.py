@@ -32,6 +32,9 @@ The element product K(E)·u has two layouts, chosen per multigrid level:
 is at least `_GRID_MIN_NNZ`, a cutoff chosen from both forms' times on the
 H100 (chip_smoke.py phase 18 times both per level): every level, as
 measured there.
+
+On a sharded design vector each rank evaluates on its x-slab of the
+voxel grid (`_FEM3DStrip`, `parallel.halo`), with halos along x only.
 """
 
 from __future__ import annotations
@@ -45,9 +48,11 @@ from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
-from ..parallel.sharding import refuses_sharded
+from ..parallel import halo
+from ..parallel.halo import strip_evaluations
 from ..problem import Problem, SparseJacobian
-from .fem_topology import _Compliance, _interleave, _interleave_t
+from .fem_topology import (_Compliance, _fields_of, _interleave,
+                           _interleave_t, _view_of, mg_gather_level)
 
 __all__ = ["FEMTopology3D", "DMOFEMTopology3D", "hex_element_stiffness"]
 
@@ -145,17 +150,22 @@ def _scatter3d(fe, nex, ney, nez):
     return out.reshape(lead + (-1,))
 
 
-def _kmul_aos(KE, Eg, ug, fixed_g, zero_entry):
+def _same(t):
+    return t
+
+
+def _kmul_aos(KE, Eg, ug, fixed_g, zero_entry, node_sum=_same):
     """K(E) @ u in the [ne, 24] form, grid in and grid out; ``zero_entry``
     gives the symmetric-Dirichlet operator of the multigrid levels (zero on
-    entry, identity on exit)."""
+    entry, identity on exit); ``node_sum`` completes the scattered node
+    grid (a strip's halo)."""
     nex, ney, nez = Eg.shape
     ug0 = torch.where(fixed_g > 0, 0.0, ug) if zero_entry else ug
     ue = _gather3d(_from_grid3(ug0), nex, ney, nez)
     fe = (ue @ KE) * Eg.reshape(-1)[:, None]
     out = _to_grid3(_scatter3d(fe, nex, ney, nez), nex + 1, ney + 1,
                     nez + 1)
-    return torch.where(fixed_g > 0, ug, out)
+    return torch.where(fixed_g > 0, ug, node_sum(out))
 
 
 def _energy_aos(KE, ug):
@@ -186,7 +196,7 @@ def _add_corners(fe, shape):
     return out
 
 
-def _kmul_grid(KE, Eg, ug, fixed_g, zero_entry):
+def _kmul_grid(KE, Eg, ug, fixed_g, zero_entry, node_sum=_same):
     """K(E) @ u on SoA grids in a bounded number of launches: the corner
     stack [24, ne], one [24, 24] product over the channel axis, the scale
     by E and eight slice adds; the same function as _kmul_aos."""
@@ -194,7 +204,8 @@ def _kmul_grid(KE, Eg, ug, fixed_g, zero_entry):
     U = _corner_stack(ug0)
     fe = torch.matmul(KE, U.reshape(U.shape[:-4] + (24, -1)))
     fe = fe.reshape(U.shape) * Eg
-    return torch.where(fixed_g > 0, ug, _add_corners(fe, ug.shape))
+    return torch.where(fixed_g > 0, ug,
+                       node_sum(_add_corners(fe, ug.shape)))
 
 
 def _energy_grid(KE, ug):
@@ -204,10 +215,10 @@ def _energy_grid(KE, ug):
     return torch.sum(KU.reshape(U.shape) * U, dim=-4)
 
 
-def _diag_grid(KE, Eg, fixed_g):
+def _diag_grid(KE, Eg, fixed_g, node_sum=_same):
     """diag(K(E)) on component grids; 1.0 at fixed dofs."""
     d = torch.diagonal(KE)[:, None, None, None] * Eg
-    out = _add_corners(d, fixed_g.shape)
+    out = node_sum(_add_corners(d, fixed_g.shape))
     return torch.where(fixed_g > 0, 1.0, torch.clamp(out, min=1e-12))
 
 
@@ -237,7 +248,7 @@ def _restrict3d():
     return restrict
 
 
-@refuses_sharded
+@strip_evaluations
 class FEMTopology3D(Problem):
     """Cantilever voxel design domain: fixed at the x = 0 face, unit
     downward load along the bottom edge of the free face.  ``device`` holds
@@ -379,8 +390,25 @@ class FEMTopology3D(Problem):
         """K(E) @ u on SoA grids (leading batch dims allowed), in the
         layout of this level."""
         if self._use_grid(ug.shape[-1]):
-            return _kmul_grid(self.KE, Eg, ug, fixed_g, zero_entry)
-        return _kmul_aos(self.KE, Eg, ug, fixed_g, zero_entry)
+            return _kmul_grid(self.KE, Eg, ug, fixed_g, zero_entry,
+                              self._node_sum)
+        return _kmul_aos(self.KE, Eg, ug, fixed_g, zero_entry,
+                         self._node_sum)
+
+    def _node_sum(self, g):
+        """A scattered node grid [..., nnx, nny, nnz] made whole (the strip
+        view adds the neighbours' parts of the shared x rows)."""
+        return g
+
+    def _dot(self, a, b):
+        """<a, b> of two nodal grids or flat vectors (the strip view's
+        sums its owned rows over the ranks)."""
+        return dot(a, b)
+
+    def _mean(self, t):
+        """The mean of an element field (the strip view's over the
+        ranks)."""
+        return torch.mean(t)
 
     def _energy_g(self, ug):
         """Per-element strain-energy grid, in the layout of the fine
@@ -405,14 +433,27 @@ class FEMTopology3D(Problem):
         with the element size), and the Cholesky factor of the coarsest
         level's matrix, assembled by one batched product on the
         identity."""
+        return self._mg_levels(Eg, 0)
+
+    def _mg_pool(self, Eg, l0, l1):
+        """(levels l0 .. l1-1, level l1's element grid) from level l0's
+        element grid Eg, each next grid by 2x2x2 mean pooling, x2."""
         levels = []
-        for li, (cx, cy, cz) in enumerate(self._mg_dims):
+        for li in range(l0, l1):
+            cx, cy, cz = Eg.shape
             fixed_g = self._mg_fixed[li]
-            levels.append((Eg, _diag_grid(self.KE, Eg, fixed_g), fixed_g,
+            levels.append((Eg, _diag_grid(self.KE, Eg, fixed_g,
+                                          self._node_sum), fixed_g,
                            cx, cy, cz))
             if li + 1 < len(self._mg_dims):
                 Eg = 2.0 * Eg.reshape(cx // 2, 2, cy // 2, 2,
                                       cz // 2, 2).mean(dim=(1, 3, 5))
+        return levels, Eg
+
+    def _mg_levels(self, Eg, l0):
+        """(levels l0.., the coarsest level's Cholesky factor) from level
+        l0's element grid."""
+        levels, _ = self._mg_pool(Eg, l0, len(self._mg_dims))
         Eg_c, _, fixed_g, cx, cy, cz = levels[-1]
         ndc = 3 * (cx + 1) * (cy + 1) * (cz + 1)
         eye = torch.eye(ndc, dtype=Eg_c.dtype, device=Eg_c.device)
@@ -426,32 +467,32 @@ class FEMTopology3D(Problem):
     def _mg_vcycle(self, levels, chol, r):
         """Symmetric V-cycle on SoA grids: weighted-Jacobi smoothing,
         trilinear transfer, dense coarse solve."""
+        return self._mg_cycle(levels, chol, 0, r)
+
+    def _mg_cycle(self, levels, chol, l, r):
+        """The V-cycle from level l down."""
         nu, om = self.mg_smooth, self.mg_omega
+        Eg, diag, fixed, cx, cy, cz = levels[l]
+        if l == len(levels) - 1:
+            y = torch.linalg.solve_triangular(
+                chol, _from_grid3(r)[:, None], upper=False)
+            e = torch.linalg.solve_triangular(chol.T, y, upper=True)
+            e = _to_grid3(e[:, 0], cx + 1, cy + 1, cz + 1)
+            return torch.where(fixed > 0, 0.0, e)
 
-        def cycle(l, r):
-            Eg, diag, fixed, cx, cy, cz = levels[l]
-            if l == len(levels) - 1:
-                y = torch.linalg.solve_triangular(
-                    chol, _from_grid3(r)[:, None], upper=False)
-                e = torch.linalg.solve_triangular(chol.T, y, upper=True)
-                e = _to_grid3(e[:, 0], cx + 1, cy + 1, cz + 1)
-                return torch.where(fixed > 0, 0.0, e)
+        def kmul(v):
+            return self._kmul_g(Eg, v, fixed, zero_entry=True)
 
-            def kmul(v):
-                return self._kmul_g(Eg, v, fixed, zero_entry=True)
-
-            e = (om / diag) * r
-            for _ in range(nu - 1):
-                e = e + (om / diag) * (r - kmul(e))
-            rc = self._restrict(r - kmul(e))
-            rc = torch.where(levels[l + 1][2] > 0, 0.0, rc)
-            e = e + torch.where(fixed > 0, 0.0,
-                                self._prolong(cycle(l + 1, rc)))
-            for _ in range(nu):
-                e = e + (om / diag) * (r - kmul(e))
-            return e
-
-        return cycle(0, r)
+        e = (om / diag) * r
+        for _ in range(nu - 1):
+            e = e + (om / diag) * (r - kmul(e))
+        rc = self._restrict(r - kmul(e))
+        rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
+        e = e + torch.where(fixed > 0, 0.0, self._prolong(
+            self._mg_cycle(levels, chol, l + 1, rc)))
+        for _ in range(nu):
+            e = e + (om / diag) * (r - kmul(e))
+        return e
 
     def _solve(self, E):
         with record_function("paropt.fem.solve"):
@@ -470,7 +511,7 @@ class FEMTopology3D(Problem):
             def precond(r):
                 return self._mg_vcycle(levels, chol, r)
         else:
-            diag_g = _diag_grid(self.KE, Eg, fixed_g)
+            diag_g = _diag_grid(self.KE, Eg, fixed_g, self._node_sum)
 
             def precond(r):
                 return r / diag_g
@@ -481,16 +522,16 @@ class FEMTopology3D(Problem):
         u = torch.zeros_like(bg)
         r = bg
         p = precond(bg)
-        rz = dot(bg, p)
+        rz = self._dot(bg, p)
         for _ in range(self.cg_iters):
             Kp = self._kmul_g(Eg, p, fixed_g, zero_entry=False)
-            pKp = dot(p, Kp)
+            pKp = self._dot(p, Kp)
             alpha = torch.where(pKp > tiny,
                                 rz / torch.where(pKp > tiny, pKp, 1.0), 0.0)
             u = u + alpha * p
             r = r - alpha * Kp
             z = precond(r)
-            rz_new = dot(r, z)
+            rz_new = self._dot(r, z)
             beta = torch.where(rz > tiny,
                                rz_new / torch.where(rz > tiny, rz, 1.0), 0.0)
             p = z + beta * p
@@ -503,7 +544,7 @@ class FEMTopology3D(Problem):
 
     def _state(self, xf):
         u = self._solve(self._simp(xf))
-        return dot(self.f, u), u
+        return self._dot(self.f, u), u
 
     def _element_energies(self, u):
         """u_e' KE u_e for every element, flat [ne]."""
@@ -521,7 +562,7 @@ class FEMTopology3D(Problem):
         return self.c_scale * self._compliance(self._filter(x))
 
     def constraints(self, x):
-        return (self.volume_fraction - torch.mean(x)).reshape(1)
+        return (self.volume_fraction - self._mean(x)).reshape(1)
 
     def sparse_constraints(self, x):
         return self.region_cap - torch.mean(
@@ -530,6 +571,9 @@ class FEMTopology3D(Problem):
     def sparse_jacobian(self, x):
         return self._jac
 
+    def _strip_view(self, mesh):
+        return _FEM3DStrip(self, mesh)
+
     def get_vars_and_bounds(self):
         kw = dict(dtype=self._dtype, device=self._device)
         n = self.nvars
@@ -537,7 +581,7 @@ class FEMTopology3D(Problem):
                 torch.zeros(n, **kw), torch.ones(n, **kw))
 
 
-@refuses_sharded
+@strip_evaluations
 class DMOFEMTopology3D(Problem):
     """Multi-material (DMO) 3-D voxel compliance design: per-voxel material
     weights x[e, m] with one "weights sum <= 1" constraint per voxel (the
@@ -584,7 +628,7 @@ class DMOFEMTopology3D(Problem):
 
     def _state(self, x):
         u = self.fem._solve(self._modulus(x))
-        return dot(self.fem.f, u), u
+        return self.fem._dot(self.fem.f, u), u
 
     def _compliance_vjp(self, x, u, ct):
         energies = self.fem._element_energies(u)               # [ne]
@@ -601,7 +645,7 @@ class DMOFEMTopology3D(Problem):
         return self.c_scale * self._compliance(x)
 
     def constraints(self, x):
-        mass = torch.mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
+        mass = self.fem._mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
 
     def sparse_constraints(self, x):
@@ -609,6 +653,12 @@ class DMOFEMTopology3D(Problem):
 
     def sparse_jacobian(self, x):
         return self._jac
+
+    def _strip_view(self, mesh):
+        view = _view_of(self)
+        view.fem = self.fem._strip_view(mesh)
+        view.ne = view.fem.ne
+        return view
 
     def get_vars_and_bounds(self):
         kw = dict(dtype=self._dtype, device=self._device)
@@ -622,3 +672,86 @@ class DMOFEMTopology3D(Problem):
         idx = xm.argmax(axis=1)
         idx[xm.max(axis=1) < 0.3] = -1
         return idx
+
+
+class _FEM3DStrip(FEMTopology3D):
+    """`FEMTopology3D` on this rank's x-slab of the voxel grid
+    (`parallel.halo`; the 2-D `fem_topology._FEMStrip` has the scheme): m =
+    nex / P element slabs and m + 1 node slabs on axis 0, halos along that
+    axis only, the V-cycle on slabs down to `mg_gather_level` and whole
+    below it.  Built by `FEMTopology3D._strip_view`."""
+
+    def __init__(self, whole: FEMTopology3D, mesh):
+        self.__dict__.update(_fields_of(whole))
+        s = halo.Strips(mesh, whole.nex, type(whole).__name__)
+        dims = whole._mg_dims
+        g = mg_gather_level(dims, s.P)
+        if whole.solver == "mgcg" and len(dims) > 1 and g == 0:
+            raise ValueError(
+                f"{type(whole).__name__} with solver='mgcg' on sharded "
+                f"state needs an even number of element slabs per rank "
+                f"(nex / P = {s.m}): the V-cycle restricts on the slabs")
+        self._whole, self._strips, self._mg_gather = whole, s, g
+        nny, nnz = whole.ney + 1, whole.nez + 1
+        self.nex, self.ne = s.m, s.m * whole.ney * whole.nez
+        self.ndof = 3 * (s.m + 1) * nny * nnz
+        self.fixed_mask = s.node_rows(whole.fixed_mask, 3 * nny * nnz)
+        self._fixed_g = _to_grid3(self.fixed_mask, s.m + 1, nny, nnz)
+        self.f = s.node_rows(whole.f, 3 * nny * nnz)
+        self._level_strips = [s.level(cx) for cx, _, _ in dims[:g + 1]]
+        self._mg_fixed = [ls.node_rows(whole._mg_fixed[l], 1, axis=-3)
+                          for l, ls in enumerate(self._level_strips)]
+        self._restrict = self._restrict_slabs
+
+    def _node_sum(self, g):
+        return halo.halo_add(g, -3, self._strips)
+
+    def _restrict_slabs(self, r):
+        """`_restrict3d` on slabs: the ghost slab zeroed so each shared
+        fine slab counts once, then the coarse shared slabs summed."""
+        s = self._strips
+        return halo.halo_add(self._whole._restrict(s.zero_ghost(r, -3)), -3,
+                             s)
+
+    def _dot(self, a, b):
+        s = self._strips
+        if a.dim() == 1:
+            return halo.allreduce(dot(s.owned_flat(a), s.owned_flat(b)), s)
+        return halo.owned_dot(a, b, -3, s)
+
+    def _mean(self, t):
+        s = self._strips
+        if s.P == 1:
+            return torch.mean(t)
+        return halo.allreduce(torch.sum(t), s) / (t.numel() * s.P)
+
+    def _filter(self, x):
+        s = self._strips
+        if not self.filter_on or s.P == 1:
+            return super()._filter(x)
+        xg = x.reshape(self.nex, self.ney, self.nez)
+        ext = halo.wrap_rows(xg, -3, s)
+        acc = xg
+        cnt = torch.ones_like(xg)
+        for ax in (0, 1, 2):
+            for sh in (1, -1):
+                # a roll by sh slabs reads slab i - sh: ext's i + 1 - sh
+                acc = acc + (ext[1 - sh:1 - sh + self.nex] if ax == 0
+                             else torch.roll(xg, sh, dims=ax))
+                cnt = cnt + 1.0
+        return (acc / cnt).reshape(-1)
+
+    def _mg_setup(self, Eg):
+        g = self._mg_gather
+        levels, Eg = self._mg_pool(Eg, 0, g)
+        Eg = halo.gather_rows(Eg, -3, self._level_strips[g], ghost=False)
+        rest, chol = self._whole._mg_levels(Eg, g)
+        return levels + rest, chol
+
+    def _mg_cycle(self, levels, chol, l, r):
+        if l < self._mg_gather:
+            return super()._mg_cycle(levels, chol, l, r)
+        s = self._level_strips[l]
+        e = self._whole._mg_cycle(levels, chol, l,
+                                  halo.gather_rows(r, -3, s))
+        return s.node_rows(e, 1, axis=-3)

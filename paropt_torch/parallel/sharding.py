@@ -28,6 +28,11 @@ branches alike.
 A sharded solve runs with PyTorch's implicit replication on (`spmd`):
 a plain tensor that meets a DTensor counts as replicated, as a JAX array
 without a sharding does under ``jit``.
+
+The FEM and frequency models do not run their stencils and multigrid on
+DTensors: their evaluations take each rank's x-strip of the mesh under
+``local_map``, with explicit halo exchanges (`halo`), where GSPMD derives
+the exchanges itself.
 """
 
 from __future__ import annotations
@@ -46,8 +51,7 @@ __all__ = ["DESIGN_AXIS", "HOST_AXIS", "init_distributed", "design_mesh",
            "hybrid_design_mesh", "design_sharding", "row_sharding",
            "replicated_sharding", "shard_design", "replicate", "shard_tree",
            "place_like", "shard_like", "is_sharded", "tree_is_sharded",
-           "mesh_size", "spmd", "settle", "refuse_sharded",
-           "refuses_sharded"]
+           "mesh_size", "spmd", "settle"]
 
 # Name of the mesh axis over which design-dimension arrays are sharded.
 DESIGN_AXIS = "d"
@@ -354,40 +358,6 @@ def spmd(fn=None, *, probe=None):
 
 
 _SPMD = threading.local()
-
-
-def refuse_sharded(what: str, *trees) -> None:
-    """Raise NotImplementedError when some tensor of ``trees`` is a
-    DTensor: ``what`` runs on sharded state only once ROADMAP item 14b
-    (the FEM halos and multigrid, the eigenvalue path) is ported."""
-    if tree_is_sharded(*trees):
-        raise NotImplementedError(
-            f"{what} on sharded state is not ported yet (ROADMAP queue 1 "
-            f"item 14b)")
-
-
-def refuses_sharded(cls):
-    """Class decorator of a model that runs on sharded state only once
-    ROADMAP item 14b is ported: each Problem method the class defines
-    among the evaluations (`_EVALUATIONS`) first calls `refuse_sharded` on
-    its design vector."""
-    for name in _EVALUATIONS:
-        fn = cls.__dict__.get(name)
-        if fn is not None:
-            setattr(cls, name, _refusing(fn))
-    return cls
-
-
-_EVALUATIONS = ("objective", "constraints", "sparse_constraints",
-                "eval_obj_con", "eval_obj_con_gradient")
-
-
-def _refusing(fn):
-    @functools.wraps(fn)
-    def run(self, x, *args, **kwargs):
-        refuse_sharded(type(self).__name__, x)
-        return fn(self, x, *args, **kwargs)
-    return run
 
 
 def settle(tree):

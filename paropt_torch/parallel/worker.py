@@ -23,7 +23,15 @@ each case of ``--cases``:
 - ``qp``: the trust region's fused QP (`make_qp_model` + FusedIP) at x0;
 - ``nk``: the fused Newton-Krylov phase on RandomConvexQP(256, 2, seed 5);
 - ``mma``: FusedMMA on SyntheticTopology, then resumed from its state;
-- ``hostip``: the host-loop InteriorPoint on a sharded design vector.
+- ``hostip``: the host-loop InteriorPoint on a sharded design vector;
+- ``fem2d``, ``fem3d``: FusedMMA on `FEMTopology` (``--fem2d``) and on
+  `FEMTopology3D` (``--fem3d``), ``eigtr``: `FusedEigenTR` on a frequency
+  model (``--eigtr``), each solved on plain tensors and then on sharded
+  state (the FEM on x-strips, `parallel.halo`), each warm on a card: the
+  trajectories, max |dx|, seconds per outer iteration, host reads, peak
+  memory and qn_roll_update launches of both, and for the FEM cases the
+  local entries of a fine-level CG vector and the exchanges of one
+  fine-level CG iteration.
 
 Each rank writes ``rank{r}.json`` (its case results, the scalars every
 rank read, the kernels' launch counts) and rank 0 writes each case's final
@@ -44,7 +52,8 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["spawn", "main", "QP_N", "MMA_N", "HOST_IP_N"]
+__all__ = ["spawn", "main", "QP_N", "MMA_N", "HOST_IP_N", "FEM2D", "FEM3D",
+           "EIGTR", "EIG_OPTS"]
 
 
 def _free_port() -> int:
@@ -264,7 +273,9 @@ class ModeSeconds:
 class CollectiveBytes:
     """Counts the collectives DTensor issues on this rank and the bytes of
     their local inputs (what the rank hands to each collective), by
-    wrapping the functional collectives DTensor calls."""
+    wrapping the functional collectives DTensor calls; and the x-strips'
+    exchanges (`halo.record`): ``halo`` lists each one's (helper,
+    elements sent to each peer, peers)."""
 
     NAMES = ("all_reduce", "all_gather_tensor", "all_gather_single",
              "reduce_scatter_tensor", "reduce_scatter_single",
@@ -273,9 +284,15 @@ class CollectiveBytes:
     def __init__(self):
         self.calls = 0
         self.bytes = 0
+        self.halo = []
         self._saved = {}
 
+    def add(self, kind, elements, peers):
+        self.halo.append((kind, elements, peers))
+
     def __enter__(self):
+        from . import halo
+        halo.RECORDERS.append(self)
         import torch.distributed._functional_collectives as funcol
         for name in self.NAMES:
             fn = getattr(funcol, name, None)
@@ -292,6 +309,8 @@ class CollectiveBytes:
         return self
 
     def __exit__(self, *exc):
+        from . import halo
+        halo.RECORDERS.remove(self)
         import torch.distributed._functional_collectives as funcol
         for name, fn in self._saved.items():
             setattr(funcol, name, fn)
@@ -597,9 +616,200 @@ def case_coll(ctx) -> dict:
                 cols.full_tensor() - whole.reshape(8, n // 8))))}
 
 
+# the FEM and eigen cases' sizes (the CPU tests'; a chip run passes its
+# own): nex, ney[, nez], cg_iters, outer iterations; the eigen TR's nex,
+# ney[, nez], N, cg_iters, lobpcg_iters, outer iterations
+FEM2D = (16, 8, 25, 8)
+FEM3D = (8, 4, 4, 20, 5)
+EIGTR = (8, 4, 3, 25, 40, 6)
+# the eigen TR's options (tests/test_sharding.py:449-464)
+EIG_OPTS = {"tr_output_file": None, "output_file": None,
+            "tr_init_size": 0.05, "tr_max_size": 0.2, "tr_min_size": 1e-6,
+            "abs_res_tol": 1e-8, "tr_l1_tol": 1e-4, "tr_linfty_tol": 1e-4,
+            "tr_adaptive_gamma_update": True, "penalty_gamma": 10.0}
+
+
+def _case_spec(ctx, text):
+    """A FEM case's sizes "a,b,...", with ":float32" or ":float64" at the
+    end to override ``--dtype``: (dtype, sizes)."""
+    sizes, _, dtype = str(text).partition(":")
+    return (getattr(torch, dtype) if dtype else ctx.dtype,
+            tuple(int(v) for v in sizes.split(",")))
+
+
+def _outer_rows(step, state, iters, syncs, fields):
+    """Up to ``iters`` outer iterations of ``step`` from ``state``, one host
+    read of each iteration's (k, fobj, infeas, l1) and converged flag."""
+    from .sharding import spmd
+
+    @spmd
+    def run(state):
+        rows = []
+        for _ in range(iters):
+            state = step(state)
+            k, f, inf, l1, done = syncs.values(
+                *(getattr(state, a) for a in fields))
+            rows.append({"k": int(k), "fobj": f, "infeas": inf, "l1": l1})
+            if done:
+                break
+        return state, rows
+
+    return run(state)
+
+
+def _timed_runs(ctx, name, solve, state0, nvars):
+    """``solve(state0, limit)`` -> (rows, x, host reads, extras) on plain
+    tensors and on sharded state, each warm on a card (one outer iteration
+    first): {"plain": ..., "sharded": ...} with each run's trajectory,
+    seconds per outer iteration, host reads, peak memory, kernel launches
+    and extras, and max |dx| between their x."""
+    from ..ops import kernels
+    from .sharding import shard_tree
+    out, xs = {}, {}
+    for run in ("plain", "sharded"):
+        st0 = state0 if run == "plain" else shard_tree(state0, ctx.mesh,
+                                                       nvars)
+        if ctx.device == "cuda":
+            solve(st0, 1)
+        _sync(ctx)
+        kernels.reset_launches()
+        if ctx.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows, x, reads, extra = solve(st0, None)
+        _sync(ctx)
+        seconds = time.perf_counter() - t0
+        xs[run] = ctx.whole(x)
+        out[run] = {"trajectory": rows, "iterations": len(rows),
+                    "seconds_per_iteration": seconds / max(len(rows), 1),
+                    "reads": reads, "launches": dict(kernels.LAUNCHES),
+                    "peak_bytes": (torch.cuda.max_memory_allocated()
+                                   if ctx.device == "cuda" else None),
+                    **extra}
+    out["max_dx"] = float(np.max(np.abs(xs["plain"] - xs["sharded"])))
+    ctx.save(name, x=torch.as_tensor(xs["sharded"]))
+    return out
+
+
+def _mma_runs(ctx, name, prob, iters):
+    from ..mma import FusedMMA
+    solver = FusedMMA(prob, {"mma_max_iterations": iters,
+                             "mma_output_file": None,
+                             "dtype": str(prob._dtype).split(".")[-1]})
+
+    def solve(st0, limit):
+        reads = solver.syncs.count
+        st, rows = _outer_rows(solver._step, st0, limit or iters,
+                               solver.syncs, ("k", "fobj", "infeas", "l1",
+                                              "converged"))
+        return rows, st.x, solver.syncs.count - reads, {}
+
+    return _timed_runs(ctx, name, solve, solver._state0, prob.nvars)
+
+
+def _locality(ctx, prob, row):
+    """{"local": ...}: a fine-level CG vector's entries on this rank's
+    strip, and the strip's exchanges in one fine-level CG iteration (the
+    difference between solves of 2 and of 1 CG iterations), which differ
+    between a middle rank and an end one."""
+    from .sharding import shard_design
+    x0, _, _ = prob.get_vars_and_bounds()
+    view = prob._strip_view(ctx.mesh)
+    xl = shard_design(x0, ctx.mesh).to_local()
+    E = view._simp(view._filter(xl))
+    logs, u = [], None
+    for iters in (1, 2):
+        view.cg_iters = iters
+        with CollectiveBytes() as coll:
+            u = view._solve(E)
+        logs.append(coll.halo)
+    extra = logs[1][len(logs[0]):]
+    kinds = {}
+    for kind, _, _ in extra:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    gathers = [e for k, e, _ in logs[1] if k == "gather_rows"]
+    return {"local": {
+        "fine_cg_entries": int(u.numel()), "node_row_entries": row,
+        "gather_point": view._mg_gather,
+        "per_cg_iteration": {
+            "collectives": len(extra),
+            "elements": sum(e * p for _, e, p in extra),
+            "max_elements_per_peer": max((e for _, e, _ in extra),
+                                         default=0),
+            "kinds": kinds},
+        "largest_gather": max(gathers, default=0)}}
+
+
+def case_fem2d(ctx) -> dict:
+    """FusedMMA on FEMTopology(nex, ney, cg_iters, mgcg), plain and on
+    x-strips."""
+    from ..models.fem_topology import FEMTopology
+    dtype, (nex, ney, cg, iters) = _case_spec(ctx, ctx.args.fem2d)
+    prob = FEMTopology(nex, ney, cg_iters=cg, solver="mgcg", dtype=dtype,
+                       device=ctx.device)
+    out = _mma_runs(ctx, "fem2d", prob, iters)
+    out.update(_locality(ctx, prob, 2 * (ney + 1)))
+    out["uneven_error"] = _uneven_error(ctx, ney, dtype)
+    return out
+
+
+def _uneven_error(ctx, ney, dtype):
+    """The error of an evaluation on 18 element rows, which P ranks must
+    divide (None where they do)."""
+    from ..models.fem_topology import FEMTopology
+    from .sharding import shard_design
+    prob = FEMTopology(18, ney, cg_iters=2, dtype=dtype, device=ctx.device)
+    x0, _, _ = prob.get_vars_and_bounds()
+    try:
+        prob.eval_obj_con(shard_design(x0, ctx.mesh))
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
+def case_fem3d(ctx) -> dict:
+    """FusedMMA on FEMTopology3D(nex, ney, nez, cg_iters, mgcg), plain and
+    on x-slabs."""
+    from ..models.fem_topology3d import FEMTopology3D
+    dtype, (nex, ney, nez, cg, iters) = _case_spec(ctx, ctx.args.fem3d)
+    prob = FEMTopology3D(nex, ney, nez, cg_iters=cg, solver="mgcg",
+                         dtype=dtype, device=ctx.device)
+    out = _mma_runs(ctx, "fem3d", prob, iters)
+    out.update(_locality(ctx, prob, 3 * (ney + 1) * (nez + 1)))
+    return out
+
+
+def case_eigtr(ctx) -> dict:
+    """FusedEigenTR on FrequencyTopology (``--eigtr`` of 6 values) or
+    FrequencyTopology3D (7 values), mgcg, with ``--eig-options``, plain
+    and on x-strips; with each run's LOBPCG block iterations and its final
+    KS constraint value."""
+    from ..models.fem_frequency import FrequencyTopology, FrequencyTopology3D
+    dtype, (*mesh, N, cg, lob, iters) = _case_spec(ctx, ctx.args.eigtr)
+    model = FrequencyTopology if len(mesh) == 2 else FrequencyTopology3D
+    prob = model(*mesh, N=N, cg_iters=cg, solver="mgcg", lobpcg_iters=lob,
+                 dtype=dtype, device=ctx.device)
+    solver = prob.build_fused_tr(dict(json.loads(ctx.args.eig_options),
+                                      tr_max_iterations=iters,
+                                      dtype=str(dtype).split(".")[-1]))
+
+    def solve(st0, limit):
+        reads = solver.syncs.count
+        n0 = len(prob.lobpcg_iters_log)
+        st, rows = _outer_rows(solver._step, st0, limit or iters,
+                               solver.syncs, ("k", "fk", "infeas", "l1",
+                                              "converged"))
+        return rows, st.xk, solver.syncs.count - reads, {
+            "lobpcg": list(prob.lobpcg_iters_log[n0:]),
+            "ks": float(ctx.whole(st.ck)[0])}
+
+    return _timed_runs(ctx, "eigtr", solve, solver._state0, prob.nvars)
+
+
 CASES = {"coll": case_coll, "ops": case_ops, "ip": case_ip,
          "overhead": case_overhead, "ckpt": case_ckpt, "qp": case_qp,
-         "nk": case_nk, "mma": case_mma, "hostip": case_hostip}
+         "nk": case_nk, "mma": case_mma, "hostip": case_hostip,
+         "fem2d": case_fem2d, "fem3d": case_fem3d, "eigtr": case_eigtr}
 
 
 def main(argv=None) -> None:
@@ -619,6 +829,16 @@ def main(argv=None) -> None:
                     help="ip: host-paced steps before the solve")
     ap.add_argument("--refine", type=int, default=1,
                     help="ip, ckpt: iterative refinement steps")
+    ap.add_argument("--fem2d", default=",".join(map(str, FEM2D)),
+                    help="fem2d: nex,ney,cg_iters,outer iterations[:dtype]")
+    ap.add_argument("--fem3d", default=",".join(map(str, FEM3D)),
+                    help="fem3d: nex,ney,nez,cg_iters,outer iterations"
+                    "[:dtype]")
+    ap.add_argument("--eigtr", default=",".join(map(str, EIGTR)),
+                    help="eigtr: nex,ney[,nez],N,cg_iters,lobpcg_iters,"
+                    "outer iterations[:dtype]")
+    ap.add_argument("--eig-options", default=json.dumps(EIG_OPTS),
+                    help="eigtr: the solver's options, a JSON object")
     args = ap.parse_args(argv)
 
     torch.set_num_threads(1)

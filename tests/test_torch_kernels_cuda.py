@@ -526,3 +526,28 @@ def test_cuda_sharded_route_launches_the_kernels(nccl_mesh, dtype,
                                 "phi_gram": 1}
     for key, val in want.items():
         assert torch.equal(got[key].full_tensor(), val), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_fem_strip_solve_matches_plain(nccl_mesh, dtype):
+    """FEMTopology(64, 32)'s state solve on its x-strip over a one-rank
+    NCCL mesh (`parallel.halo`: the halos have no neighbour, the dots sum
+    the owned rows, the V-cycle gathers at its gather level) equals the
+    plain solve bit for bit on the card, and so do the sharded
+    evaluations."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.parallel.sharding import shard_design
+    prob = FEMTopology(64, 32, cg_iters=25, solver="mgcg", dtype=dtype,
+                       device=nccl_mesh.device_type)
+    x0, _, _ = prob.get_vars_and_bounds()
+    x = x0 * torch.linspace(0.5, 1.5, prob.nvars, dtype=dtype,
+                            device=x0.device)
+    E = prob._simp(prob._filter(x))
+    view = prob._strip_view(nccl_mesh)
+    u = view._solve(shard_design(E, nccl_mesh).to_local())
+    assert torch.equal(u, prob._solve(E))
+    xs = shard_design(x, nccl_mesh)
+    for got, want in zip(
+            prob.eval_obj_con(xs) + prob.eval_obj_con_gradient(xs),
+            prob.eval_obj_con(x) + prob.eval_obj_con_gradient(x)):
+        assert torch.equal(got.full_tensor(), want)

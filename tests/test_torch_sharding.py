@@ -1,9 +1,10 @@
 """The port's DTensor plumbing at world size 1, in the pytest process (one
 gloo rank with a ``file://`` init, destroyed at the end of the module):
 the sharding helpers, the three kernels' DTensor rules against their plain
-versions bit for bit, `HostSyncs` on DTensors, the guards of the models
-that ROADMAP item 14b ports, and the ``torch.distributed.checkpoint``
-round trips of the fused state and of the host InteriorPoint (the
+versions bit for bit, `HostSyncs` on DTensors, the FEM and frequency
+models and `FusedEigenTR` on sharded state (their x-strips at one rank,
+tests/test_sharding.py:375-464), and the ``torch.distributed.checkpoint``
+round trips of the fused states and of the host InteriorPoint (the
 counterparts of tests/test_sharding.py:150-251).  The multi-rank runs are
 in tests/test_torch_distributed.py.  float64, one thread.
 """
@@ -200,35 +201,80 @@ MODELS_14B = {
 }
 
 
+def _rel(got, want):
+    got = got.full_tensor() if isinstance(got, DTensor) else got
+    scale = float(torch.max(torch.abs(want)))
+    return float(torch.max(torch.abs(got - want))) / scale
+
+
 @pytest.mark.parametrize("name", sorted(MODELS_14B))
-def test_item_14b_models_refuse_sharded_state(mesh, name):
-    """The FEM stencils, multigrid and eigenvalue models on sharded state
-    are ROADMAP item 14b: each raises instead of running on by accident."""
+def test_item_14b_models_on_sharded_state(mesh, name):
+    """The FEM and frequency models evaluate on a sharded design vector
+    through their x-strips (`parallel.halo`): objective, constraints and
+    gradients equal the plain evaluation's within 1e-14 relative, the
+    values come back replicated and the gradients in the design
+    placements."""
     prob = MODELS_14B[name]()
-    x0, _, _ = prob.get_vars_and_bounds()
-    xs = sh.shard_design(x0, mesh)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        prob.eval_obj_con(xs)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        prob.eval_obj_con_gradient(xs)
-    # every evaluation the model's classes define (not Problem's defaults)
-    for cls in type(prob).__mro__:
-        for name in sh._EVALUATIONS:
-            if (cls.__module__.startswith("paropt_torch.models")
-                    and name in vars(cls)):
-                with pytest.raises(NotImplementedError, match="item 14b"):
-                    getattr(prob, name)(xs)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.uniform(0.3, 0.9, prob.nvars), dtype=F64)
+    xs = sh.shard_design(x, mesh)
+    f, c = prob.eval_obj_con(x)
+    g, A = prob.eval_obj_con_gradient(x)
+    fs, cs = prob.eval_obj_con(xs)
+    gs, As = prob.eval_obj_con_gradient(xs)
+    assert fs.placements == cs.placements == (Replicate(),)
+    assert gs.placements == (Shard(0),) and As.placements == (Shard(1),)
+    for got, want in ((fs, f), (cs, c), (gs, g), (As, A)):
+        assert _rel(got, want) <= 1e-14
+    assert _rel(prob.objective(xs), prob.objective(x)) <= 1e-14
 
 
-def test_fused_eigen_tr_refuses_sharded_state(mesh):
+def _eig_tr(freq, iters, **extra):
+    return freq.build_fused_tr({**extra,
+        "tr_output_file": None, "output_file": None,
+        "tr_max_iterations": iters, "tr_init_size": 0.05,
+        "tr_max_size": 0.2, "tr_min_size": 1e-6, "abs_res_tol": 1e-8,
+        "tr_l1_tol": 1e-4, "tr_linfty_tol": 1e-4,
+        "tr_adaptive_gamma_update": True, "penalty_gamma": 10.0,
+        "dtype": "float64"})
+
+
+def test_fused_eigen_tr_on_sharded_state(mesh):
+    """FusedEigenTR from a sharded state0 (tests/test_sharding.py:443-464):
+    the same outer iterations and fobj within 1e-9 of the plain solve;
+    x, the gradients and the sensitivities stay in the design placements,
+    the warm-start basis replicated."""
     freq = _frequency()
-    solver = freq.build_fused_tr({"tr_output_file": None,
-                                  "output_file": None,
-                                  "tr_max_iterations": 1,
-                                  "dtype": "float64"})
+    solver = _eig_tr(freq, 3)
+    res, _ = solver.solve()
     st0 = sh.shard_tree(solver._state0, mesh, freq.nvars)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        solver.solve(state0=st0)
+    assert st0.V.placements == (Replicate(),)
+    res_s, st = solver.solve(state0=st0)
+    assert res_s["niter"] == res["niter"] == 3
+    assert abs(res_s["fobj"] - res["fobj"]) < 1e-9
+    assert st.xk.placements == st.gk.placements == (Shard(0),)
+    assert st.eig.h.placements == st.Ak.placements == (Shard(1),)
+    assert st.qn.buf.placements == (Shard(1),)
+    assert st.V.placements == (Replicate(),)
+
+
+def test_fused_eig_tr_state_dcp_roundtrip(mesh, tmp_path):
+    """A sharded FusedEigTRState through the solver's checkpoint_path (a
+    DCP directory) and back: equal leaves and placements, and the next
+    outer iteration from each is the same."""
+    freq = _frequency()
+    solver = _eig_tr(freq, 1, tr_write_output_frequency=1)
+    st0 = sh.shard_tree(solver._state0, mesh, freq.nvars)
+    path = str(tmp_path / "eig")
+    _, st = solver.solve(state0=st0, checkpoint_path=path)
+    assert os.path.isdir(path)
+    back = restore_state(path, st0)
+    assert _maxdiff(st, back) == 0.0
+    assert back.xk.placements == (Shard(0),)
+    assert back.eig.h.placements == (Shard(1),)
+    assert back.V.placements == (Replicate(),)
+    one, two = solver.solve(state0=st)[1], solver.solve(state0=back)[1]
+    assert _maxdiff(one, two) == 0.0
 
 
 def test_fused_state_dcp_roundtrip(mesh, tmp_path):
