@@ -39,7 +39,10 @@ beside four other processes on the same card and host:
    batched, bit for bit against 4 single launches, and at kb = 1 bit for
    bit against the single launch; the device time of the instance-axis
    launch, of 4 single launches and of the plain version batched, and the
-   bound (4 times the single call's bytes);
+   bound (4 times the single call's bytes); phi_gram also at phase 22's
+   shape (kb = 32 instances of nwcon = 512, vals shared), against the
+   plain version batched and bit for bit against 32 single launches, with
+   the time of the instance-axis launch and of the 32 single launches;
 4. slice: the fused interior-point solve of SyntheticTopology at n = 2^20
    in float32 (in-loop L-BFGS, msub 10, abs_res_tol 1e-6, no refinement),
    which must converge and must launch every kernel;
@@ -1748,6 +1751,8 @@ def phase_3d_crosscheck(torch):
 
 
 KB = 4
+# phase 3b's second phi_gram shape: phase 22's batch (scripts/bench_batched.py)
+PG_SMALL_KB, PG_SMALL_N = 32, 4096
 
 
 def _starts(torch, x0, k, lo, hi, clip=None, seed=0):
@@ -1767,7 +1772,10 @@ def phase_kernels_batched(torch, timing):
     error) and against 4 single launches (bit for bit), at kb = 1 against
     the single launch (bit for bit); times of the instance-axis launch, of
     4 single launches and of the plain version batched, and the bound (4
-    times the single call's bytes).  Adds the results to ``timing``."""
+    times the single call's bytes).  phi_gram also at phase 22's shape
+    (kb = 32, nwcon = 512): against the plain version batched and bit for
+    bit against 32 single launches, both launches timed.  Adds the
+    results to ``timing``."""
     from paropt_torch.ops import kernels
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1876,6 +1884,40 @@ def phase_kernels_batched(torch, timing):
         lambda: kernels.phi_gram_plain_batched(*args),
         _nbytes(dinv, cwinv, vals[0], bx, *got),
         KB * (2 * B * B * BLOCK * W + B * W * (6 * BLOCK + 2))))
+
+    # phi_gram at phase 22's shape: kb = 32 instances of n = 4096 (nwcon =
+    # 512, 16 tiles each), as above
+    kb, W = PG_SMALL_KB, PG_SMALL_N // BLOCK
+    per = [_qd_inputs(torch, gen, B, BLOCK, W, f32) for _ in range(kb)]
+    dinv, cwinv, vals, bx = (torch.stack([p[j] for p in per])
+                             for j in range(4))
+    vals = vals[0].expand(kb, BLOCK, W)
+    args = (dinv, cwinv, vals, bx[:, :2 * MSUB], None, bx[:, 2 * MSUB:])
+    got = kernels.phi_gram_batched(*args)
+    want = kernels.phi_gram_plain_batched(*args)
+    err = max(rel_err(torch, g, w)[0] for g, w in zip(got, want))
+    rel = max(rel_err(torch, g, w)[1] for g, w in zip(got, want))
+    check(rel <= RTOL["float32"], f"phi_gram kb={kb} nwcon={W}: relative "
+          f"error {rel:.3e} > {RTOL['float32']:.0e}")
+    for i in range(kb):
+        check(all(torch.equal(g[i], s) for g, s in zip(
+            got, kernels.phi_gram(*pick(i)))), f"phi_gram kb={kb} "
+            f"nwcon={W}: instance {i} differs from its single launch")
+    ms = cuda_ms(torch, lambda: kernels.phi_gram_batched(*args))
+    # 5 runs of 32 single launches: the timer enqueues every run while a
+    # spin holds the stream, and 20 runs of 64 kernels would fill the
+    # stream's queue of pending launches, which makes the host wait
+    sms = cuda_ms(torch, lambda: [kernels.phi_gram(*pick(i))
+                                  for i in range(kb)], reps=5)
+    bms, by = bound_ms(_nbytes(dinv, cwinv, vals[0], bx, *got),
+                       kb * (2 * B * B * BLOCK * W + B * W * (6 * BLOCK + 2)))
+    log(f"[kernels kb={kb}] phi_gram B={B} nwcon={W}: max abs err {err:.3e} "
+        f"against the plain version batched; {kb} instances bitwise equal "
+        f"to single launches; {ms:.4f} ms instance-axis launch, {sms:.4f} "
+        f"ms {kb} single launches; bound {bms:.4f} ms by {by}, "
+        f"{100 * bms / ms:.1f}% of bound; clocks.sm, power.draw, "
+        f"power.limit: {smi_sample()}")
+    r.update(kb32_ms=ms, kb32_singles_ms=sms, kb32_bound_ms=bms)
 
 
 def _perturbed(torch, x, seed=5):
@@ -3397,24 +3439,31 @@ def phase_sharded(torch, ip_launches, ip_iters, ip_fobj, ip_x):
 # phase 37's cases: worker size strings (with their dtypes) and tolerances
 FEM37 = {"fem2d": "768,384,25,3:float64", "fem3d": "160,80,80,40,2:float32",
          "eigtr": "64,32,32,6,30,60,2:float32"}
+# (b)'s 3-D case, held to one rank in float64 (four ranks sum the strips'
+# dots in another order than one)
+FEM37_3D_F64 = "160,80,80,40,2:float64"
+# a float32 solve that sums in another order moves by this much (PERF.md:
+# 1e-4-1e-3 in fobj under roundoff alone); (b)'s float32 3-D run is held
+# to (a) within it
+F32_REORDER_RTOL = 1e-3
 
 
 def _fem37_rtol(spec):
     return RTOL[spec.rpartition(":")[2]]
 
 
-def _fem37_report(torch, tag, ranks, held):
-    """Print and check one launch's three cases (rank 0's figures; every
-    rank must report the same trajectories); ``held``: each sharded run
-    is held to its plain run outer iteration by outer iteration (one rank,
-    where they are the same computation).  Returns rank 0's results."""
+def _fem37_report(torch, tag, ranks, held, specs=FEM37):
+    """Print and check one launch's cases (rank 0's figures; every rank
+    must report the same trajectories); ``held``: each sharded run is held
+    to its plain run outer iteration by outer iteration (one rank, where
+    they are the same computation).  Returns rank 0's results."""
     r0 = ranks[0]
     for r in ranks[1:]:
-        for case in FEM37:
+        for case in specs:
             check(r[case]["sharded"]["trajectory"]
                   == r0[case]["sharded"]["trajectory"],
                   f"{tag} {case}: rank {r['rank']} saw another trajectory")
-    for case, spec in FEM37.items():
+    for case, spec in specs.items():
         c = r0[case]
         plain, shd = c["plain"], c["sharded"]
         rtol = _fem37_rtol(spec)
@@ -3464,6 +3513,47 @@ def _fem37_report(torch, tag, ranks, held):
     return r0
 
 
+def _fem37_against(case, pa, pb, rtol, tag, ref, reads=False):
+    """Hold run pb (``tag``) to run pa (``ref``): the same iterations, the
+    final fobj and infeasibility within ``rtol`` relative (the eigen TR
+    also its KS value), and with ``reads`` the same host reads."""
+    fa, fb = pa["trajectory"][-1]["fobj"], pb["trajectory"][-1]["fobj"]
+    log(f"[fem-sharded] {tag} {case} against {ref}: iterations "
+        f"{pb['iterations']} vs {pa['iterations']}, final fobj {fb:.12e} vs "
+        f"{fa:.12e} ({abs(fa - fb) / abs(fa):.3e} relative, held to "
+        f"{rtol:.0e}); host reads {pb['reads']} vs {pa['reads']}; peak "
+        f"memory per rank {(pb['peak_bytes'] or 0) / 2**30:.3f} vs "
+        f"{(pa['peak_bytes'] or 0) / 2**30:.3f} GiB")
+    check(pb["iterations"] == pa["iterations"],
+          f"{tag} {case}: another iteration count than {ref}")
+    check(abs(fa - fb) <= rtol * abs(fa),
+          f"{tag} {case}: fobj differs from {ref}")
+    ia, ib = (p["trajectory"][-1]["infeas"] for p in (pa, pb))
+    check(abs(ia - ib) <= rtol * max(1.0, abs(ia)),
+          f"{tag} {case}: infeasibility differs from {ref}")
+    if case == "eigtr":
+        check(abs(pa["ks"] - pb["ks"]) <= rtol * max(1.0, abs(pa["ks"])),
+              f"{tag} eigtr: KS differs from {ref}")
+    check(not reads or pb["reads"] == pa["reads"],
+          f"{tag} {case}: {pb['reads']} host reads against {ref}'s "
+          f"{pa['reads']}")
+
+
+def _fem37_3d_f64(torch, base):
+    """37(b)'s 3-D case in float64: one NCCL rank, then four, each solving
+    plain and sharded; the four ranks' sharded run takes one rank's
+    iterations and host reads, its final fobj within 1e-12 relative."""
+    specs = {"fem3d": FEM37_3D_F64}
+    args = ["--cases", "fem3d", "--fem3d", FEM37_3D_F64]
+    one = _fem37_report(torch, "(b) f64 one rank",
+                        _ranks(1, base / "b64_1", *args), True, specs)
+    four = _fem37_report(torch, "(b) f64 four ranks",
+                         _ranks(4, base / "b64_4", *args), False, specs)
+    _fem37_against("fem3d", one["fem3d"]["sharded"],
+                   four["fem3d"]["sharded"], RTOL["float64"],
+                   "(b) f64 four ranks", "one rank", reads=True)
+
+
 def phase_fem_sharded(torch):
     """37: the FEM and eigen models on x-strips; returns (a)'s launches of
     the sharded eigen TR."""
@@ -3482,28 +3572,15 @@ def phase_fem_sharded(torch):
                 f"plain run bit for bit")
     count = torch.cuda.device_count()
     if count >= 4:
-        # four ranks sum in another order than one: (b) is held to (a)
+        # four ranks sum in another order than one: (b) is held to (a),
+        # the float32 3-D case at float32's reordering scale (its float64
+        # run below holds the strip code to 1e-12)
         b = _fem37_report(torch, "(b)", _ranks(4, base / "b", *args), False)
         for case, spec in FEM37.items():
-            rtol = _fem37_rtol(spec)
-            pa, pb = a[case]["sharded"], b[case]["sharded"]
-            log(f"[fem-sharded] (b) {case} against (a): iterations "
-                f"{pb['iterations']} vs {pa['iterations']}, final fobj "
-                f"{pb['trajectory'][-1]['fobj']:.12e} vs "
-                f"{pa['trajectory'][-1]['fobj']:.12e}; peak memory per "
-                f"rank {(pb['peak_bytes'] or 0) / 2**30:.3f} vs "
-                f"{(pa['peak_bytes'] or 0) / 2**30:.3f} GiB")
-            check(pb["iterations"] == pa["iterations"],
-                  f"(b) {case}: another iteration count than (a)")
-            fa, fb = pa["trajectory"][-1]["fobj"], pb["trajectory"][-1]["fobj"]
-            check(abs(fa - fb) <= rtol * abs(fa),
-                  f"(b) {case}: fobj differs from (a)")
-            ia, ib = (p["trajectory"][-1]["infeas"] for p in (pa, pb))
-            check(abs(ia - ib) <= rtol * max(1.0, abs(ia)),
-                  f"(b) {case}: infeasibility differs from (a)")
-            if case == "eigtr":
-                check(abs(pa["ks"] - pb["ks"]) <= rtol * max(
-                    1.0, abs(pa["ks"])), "(b) eigtr: KS differs from (a)")
+            rtol = F32_REORDER_RTOL if case == "fem3d" else _fem37_rtol(spec)
+            _fem37_against(case, a[case]["sharded"], b[case]["sharded"],
+                           rtol, "(b)", "(a)")
+        _fem37_3d_f64(torch, base)
     else:
         log(f"[fem-sharded] (b) not run: {count} card(s), four needed")
     log(f"[fem-sharded] phase 37 took {time.perf_counter() - t_phase:.2f} s")
@@ -3684,7 +3761,9 @@ def main():
                      "bound_by": r["bound_by"], "library_ms": None,
                      **{key: r[key] for key in (
                          "batched_max_abs_err", "batched_ms", "singles_ms",
-                         "batched_plain_ms", "batched_bound_ms")}})
+                         "batched_plain_ms", "batched_bound_ms",
+                         "kb32_ms", "kb32_singles_ms", "kb32_bound_ms")
+                         if key in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,7 @@ _SIGNATURES = {
     **{f"paropt_phi_gram_{sfx}": [_P] * 10 + [_I, _I, _I, _L] + [_I] * 6
        + [_P] for sfx in ("f32", "f64")},
     **{f"paropt_phi_gram_batched_{sfx}": [_P] * 10 + [_I, _I, _I, _L]
-       + [_I] * 7 + [_L] * 6 + [_P] for sfx in ("f32", "f64")},
+       + [_I] * 8 + [_L] * 6 + [_P] for sfx in ("f32", "f64")},
     "paropt_qn_roll_tile": [],
 }
 

@@ -52,7 +52,7 @@ __all__ = ["LAUNCHES", "BATCHED_LAUNCHES", "reset_launches",
            "quasi_def_apply", "quasi_def_apply_plain",
            "quasi_def_apply_batched", "phi_gram", "phi_gram_plain",
            "phi_gram_batched", "phi_gram_plan", "phi_gram_tile",
-           "check_split"]
+           "phi_gram_grid", "phi_gram_walk", "check_split"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"qn_roll_update": 0, "quasi_def_apply": 0, "phi_gram": 0}
@@ -108,11 +108,15 @@ def _lib():
 def _inst(t: torch.Tensor):
     """(tensor, instance stride in elements) of a [kb, ...] operand: an
     operand shared by the instances (an expanded view, or kb = 1) passes
-    its first instance with stride 0, any other is made contiguous."""
+    its first instance with stride 0; one whose every instance is
+    contiguous passes as it is with its instance stride (a block of rows
+    sliced from a larger stack is not copied); any other is made
+    contiguous."""
     if t.shape[0] == 1 or t.stride(0) == 0:
         return t[0].contiguous(), 0
-    t = t.contiguous()
-    return t, t[0].numel()
+    if not t[0].is_contiguous():
+        t = t.contiguous()
+    return t, t.stride(0)
 
 
 def _aligned_inst(*pairs) -> bool:
@@ -442,13 +446,32 @@ class PhiGramPlan(NamedTuple):
     blocks_per_sm: int  # resident blocks per SM the plan is sized for
 
 
+def _pg_mt(bpad: int):
+    """Gram micro-tiles per thread for B padded to ``bpad`` (None: too
+    many)."""
+    nmt = (bpad // 4) ** 2
+    return next((m for m in (1, 2, 4) if nmt <= _PG_THREADS * m), None)
+
+
+def _pg_red_elems(bpad: int, mt: int) -> int:
+    """Elements of the Gram reduction (pg_red_elems in quasi_def.cu): the
+    micro-tiles of the threads that share each micro-tile."""
+    nmt = (bpad // 4) ** 2
+    return (_PG_THREADS // nmt if mt == 1 else 1) * nmt * 16
+
+
 def _pg_smem_elems(B: int, k: int, tile: int, slots: int,
                    has_bw: bool) -> int:
     """Elements of the kernel's shared layout (PgLayout in quasi_def.cu):
-    the ring of staged tiles and the tile's yx."""
+    the ring of staged tiles and the tile's yx, and the Gram reduction
+    where it does not fit in the two regions a virtual block's end frees
+    (a stage and the tile's yx)."""
     stage = k * (tile // 4) * slots * 4
     ring = 2 * k * tile + tile + (B * tile if has_bw else 0)
-    return (_PG_STAGES + 1) * stage + _PG_STAGES * ring
+    bpad = -(-B // 4) * 4
+    red = _pg_red_elems(bpad, _pg_mt(bpad))
+    return ((_PG_STAGES + 1) * stage + _PG_STAGES * ring
+            + (red if red > 2 * stage else 0))
 
 
 def phi_gram_plan(B: int, k: int, itemsize: int,
@@ -458,19 +481,16 @@ def phi_gram_plan(B: int, k: int, itemsize: int,
     yx.  Two blocks per SM where a tile of at least 8 columns fits in half
     an SM, else one block with the widest tile that fits."""
     bpad = -(-B // 4) * 4
-    nmt = (bpad // 4) ** 2
-    mt = next((m for m in (1, 2, 4) if nmt <= _PG_THREADS * m), None)
+    mt = _pg_mt(bpad)
     _require(mt is not None,
              f"stack too tall for the Gram micro-tiles (B={B}, k={k})")
     slots = (bpad + bpad // 4) | 1
-    red = _PG_THREADS * mt * 16
     for per_sm, tiles in ((2, (32, 16, 8)), (1, (64, 32, 16, 8, 4))):
         if per_sm > 1 and mt > 1:
             continue
         budget = min(_SM_SMEM_BYTES // per_sm - 1024, _BLOCK_SMEM_BYTES)
         for tile in tiles:
-            smem = max(_pg_smem_elems(B, k, tile, slots, has_bw),
-                       red) * itemsize
+            smem = _pg_smem_elems(B, k, tile, slots, has_bw) * itemsize
             if smem <= budget:
                 return PhiGramPlan(tile, bpad, slots, mt, smem, per_sm)
     raise ValueError(f"stack too tall for the shared stage (B={B}, k={k})")
@@ -511,11 +531,11 @@ def _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
     Btop, k, W = bx3.shape
     B = Btop + (0 if bx3_tail is None else bx3_tail.shape[0])
     plan = phi_gram_plan(B, k, bx3.element_size(), bw2 is not None)
-    nblocks = phi_gram_grid(plan, W, bx3.device)
+    nb, _ = phi_gram_grid(plan, W, _sm_count(bx3.device))
     kw = dict(dtype=bx3.dtype, device=bx3.device)
     yx = torch.empty((B, k, W), **kw)
     yw = torch.empty((B, W), **kw)
-    partials = torch.empty((nblocks, B, B), **kw)
+    partials = torch.empty((nb, B, B), **kw)
     gram = torch.empty((B, B), **kw)
     vec = W % 4 == 0 and _aligned16(dinv2, cwinv, vals_t, bx3, bx3_tail,
                                     bw2, yx, yw)
@@ -523,8 +543,8 @@ def _phi_gram_op(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail):
     _launch("phi_gram", fn, bx3.device,
             *(_ptr(t) for t in (dinv2, cwinv, vals_t, bx3, bx3_tail, bw2, yx,
                                 yw, partials, gram)),
-            B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
-            nblocks, int(vec))
+            B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem, nb,
+            int(vec))
     return yx, yw, gram
 
 
@@ -541,13 +561,33 @@ def _phi_gram_vmap(info, in_dims, *args):
     return phi_gram_batched(*_vmap_args(info, in_dims, *args)), (0, 0, 0)
 
 
-def phi_gram_grid(plan: PhiGramPlan, W: int, device) -> int:
-    """Blocks per instance of the persistent grid.  An instance-axis launch
-    keeps the single launch's plan (tile, slots) and block count for every
-    instance, the instances stacked on the grid's y axis: the per-instance
-    tile walk, and so every sum, is the single launch's."""
-    ntiles = -(-W // plan.tile)
-    return max(1, min(ntiles, plan.blocks_per_sm * _sm_count(device)))
+def phi_gram_grid(plan: PhiGramPlan, W: int, sms: int,
+                  kb: int = 1) -> Tuple[int, int]:
+    """(nb, grid) of a launch over kb instances on a card of ``sms`` SMs:
+    nb virtual blocks per instance, the single launch's persistent grid
+    (a block per tile, at most blocks_per_sm × SMs), and the grid of
+    min(kb·nb, blocks_per_sm × SMs) physical blocks that walks the kb·nb
+    virtual blocks (`phi_gram_walk`).  Each instance keeps the single
+    launch's plan, blocks and tile walk, so every sum is the single
+    launch's; kb = 1 is the single launch."""
+    resident = plan.blocks_per_sm * sms
+    nb = max(1, min(-(-W // plan.tile), resident))
+    return nb, min(kb * nb, resident)
+
+
+def phi_gram_walk(nb: int, grid: int, kb: int, ntiles: int, g: int):
+    """What physical block g of `phi_gram_grid`'s launch works on, in
+    order: [(instance, block, [tiles])], the walk of `phi_gram_kernel`
+    (quasi_def.cu).  It takes virtual blocks v = g, g + grid, ... < kb·nb;
+    v is block b = (v % nb + i·(ntiles % nb)) % nb of instance i = v // nb
+    (the rotation spreads the blocks that hold one tile more), and takes
+    the single launch's tiles of block b: b, b + nb, ... < ntiles."""
+    walk = []
+    for v in range(g, kb * nb, grid):
+        i = v // nb
+        b = (v % nb + i * (ntiles % nb)) % nb
+        walk.append((i, b, list(range(b, ntiles, nb))))
+    return walk
 
 
 def phi_gram_batched(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
@@ -556,18 +596,20 @@ def phi_gram_batched(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     cwinv [kb, nwcon]; bx3 [kb, Btop, k, nwcon]; bx3_tail [kb, B2, k,
     nwcon] or None; bw2 [kb, B, nwcon] or None), shared operands as
     expanded views.  Returns (yx3 [kb, B, k, nwcon], yw [kb, B, nwcon],
-    gram [kb, B, B]); instance i equals a single call bit for bit."""
+    gram [kb, B, B]); instance i equals a single call bit for bit.  One
+    persistent grid walks the kb instances' virtual blocks
+    (`phi_gram_grid`)."""
     if _check_batched(dinv2, cwinv, vals_t, bx3, bw2, bx3_tail) == "cpu":
         return phi_gram_plain_batched(dinv2, cwinv, vals_t, bx3, bw2,
                                       bx3_tail)
     kb, Btop, k, W = bx3.shape
     B = Btop + (0 if bx3_tail is None else bx3_tail.shape[1])
     plan = phi_gram_plan(B, k, bx3.element_size(), bw2 is not None)
-    nblocks = phi_gram_grid(plan, W, bx3.device)
+    nb, grid = phi_gram_grid(plan, W, _sm_count(bx3.device), kb)
     kw = dict(dtype=bx3.dtype, device=bx3.device)
     yx = torch.empty((kb, B, k, W), **kw)
     yw = torch.empty((kb, B, W), **kw)
-    partials = torch.empty((kb, nblocks, B, B), **kw)
+    partials = torch.empty((kb, nb, B, B), **kw)
     gram = torch.empty((kb, B, B), **kw)
     pairs = [(None, 0) if t is None else _inst(t)
              for t in (dinv2, cwinv, vals_t, bx3, bx3_tail, bw2)]
@@ -576,8 +618,8 @@ def phi_gram_batched(dinv2, cwinv, vals_t, bx3, bw2=None, bx3_tail=None):
     _launch("phi_gram", fn, bx3.device,
             *(_ptr(t) for t, _ in pairs),
             *(t.data_ptr() for t in (yx, yw, partials, gram)),
-            B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem,
-            nblocks, int(vec), kb, *(st for _, st in pairs), batched=True)
+            B, Btop, k, W, plan.tile, plan.slots, plan.mt, plan.smem, nb,
+            grid, int(vec), kb, *(st for _, st in pairs), batched=True)
     return yx, yw, gram
 
 

@@ -39,12 +39,10 @@ def blocks(n):
                        "(1, (64, 32, 16, 8, 4))):")]
 
 
-def layout(stages, per_sm, tile):
-    """kPgStages tiles in the ring, per_sm resident blocks, tile columns."""
-    return [(CU, "constexpr int kPgStages = 2;",
-             f"constexpr int kPgStages = {stages};"),
-            (PY, "_PG_STAGES = 2 ", f"_PG_STAGES = {stages} "),
-            (CU, BOUNDS,
+def layout(per_sm, tile):
+    """per_sm resident blocks, tile columns (the ring keeps two stages:
+    the Gram reduction's place in shared memory needs that)."""
+    return [(CU, BOUNDS,
              f"__launch_bounds__(kPgThreads, MT == 1 ? {per_sm} : 1)"),
             (PY, PLAN, f"for per_sm, tiles in (({per_sm}, ({tile}, "
                        f"{tile // 2}, {tile // 4})), (1, (16, 8, 4))):")]
@@ -55,27 +53,10 @@ BY_LOAD = (CU, "      cp_async<16>(dst + h * (16 / sizeof(T)), s + h * (16 / siz
            "      *reinterpret_cast<float4*>(dst + h * (16 / sizeof(T))) = ok ? "
            "*reinterpret_cast<const float4*>(s + h * (16 / sizeof(T))) : "
            "make_float4(0.f, 0.f, 0.f, 0.f);")
-NO_GRAM = (CU, "    if (g < G) {\n      for (int c = g;",
-           "    if (false) {\n      for (int c = g;")
+NO_GRAM = (CU, "      if (g < G) {\n        for (int c = g;",
+           "      if (false) {\n        for (int c = g;")
 NO_APPLY = (CU, "for (int item = tid; item < B * qt; item += kPgThreads) {",
             "for (int item = tid; item < 0; item += kPgThreads) {")
-# each block walks a contiguous run of tiles instead of every gridDim-th
-CONTIGUOUS = [
-    (CU, "  const long long step = gridDim.x;",
-     "  const long long step = 1;\n"
-     "  const long long per = (ntiles + gridDim.x - 1) / gridDim.x;\n"
-     "  const long long t_end = min(ntiles, (blockIdx.x + 1) * per);"),
-    (CU, "const long long t = blockIdx.x + s * step;",
-     "const long long t = blockIdx.x * per + s;"),
-    (CU, "    if (t < ntiles) issue(t * tw, s);",
-     "    if (t < t_end) issue(t * tw, s);"),
-    (CU, "  long long tile = blockIdx.x;\n",
-     "  long long tile = blockIdx.x * per;\n"),
-    (CU, "tile < ntiles; ++it, tile += step)",
-     "tile < t_end; ++it, tile += step)"),
-    (CU, "if (ahead < ntiles) issue(", "if (ahead < t_end) issue("),
-]
-
 # yx and yw stored without the evict-first hint (plain st.global)
 PLAIN_STORES = [
     (CU, "        __stcs(reinterpret_cast<float4*>(dst + w) + h,\n"
@@ -84,23 +65,6 @@ PLAIN_STORES = [
      "            reinterpret_cast<const float4*>(&v)[h];"),
     (CU, "if (w + e < W) __stcs(dst + w + e, v.v[e]);",
      "if (w + e < W) dst[w + e] = v.v[e];")]
-
-
-def prefetch(tiles):
-    """Contiguous tiles per block, and every `tiles` tiles a bulk L2
-    prefetch (cp.async.bulk.prefetch.L2) of each bx row's next `tiles`
-    tiles, so DRAM sees runs of tiles × 128 bytes."""
-    return CONTIGUOUS + [(
-        CU, "      pg_copy4<T, VEC>(bxs + (j * qt + q0) * cs + pg_slot(b) * 4, "
-            "row, w, W);",
-        "      pg_copy4<T, VEC>(bxs + (j * qt + q0) * cs + pg_slot(b) * 4, "
-        "row, w, W);\n"
-        f"      if (q0 == 0 && (w0 / tw) % {tiles} == 0 && "
-        f"w0 + 2LL * {tiles} * tw <= W) {{\n"
-        "        asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\" "
-        f":: \"l\"(row + w0 + {tiles} * tw), "
-        f"\"r\"(static_cast<int>({tiles} * tw * sizeof(T))) : \"memory\");\n"
-        "      }")]
 
 
 # name -> [(file, text, replacement)]
@@ -119,14 +83,7 @@ VARIANTS = {
                             "constexpr int kQdThreads = 64;")],
     "apply_blocks_of_256": [(CU, "constexpr int kQdThreads = 128;",
                              "constexpr int kQdThreads = 256;")],
-    "3_stages_tile_32_1_block": layout(3, 1, 32),
-    "4_stages_tile_32_1_block": layout(4, 1, 32),
-    "3_stages_tile_16_2_blocks": layout(3, 2, 16),
     "plain_stores": PLAIN_STORES,
-    "contiguous_tiles_per_block": CONTIGUOUS,
-    "contiguous_prefetch_4_tiles": prefetch(4),
-    "contiguous_prefetch_8_tiles": prefetch(8),
-    "diag_copies_only_prefetch_4_tiles": [NO_GRAM, NO_APPLY] + prefetch(4),
     "diag_no_gram": [NO_GRAM],
     "diag_no_apply": [NO_APPLY],
     "diag_copies_only": [NO_GRAM, NO_APPLY],
@@ -138,18 +95,10 @@ VARIANTS = {
         NO_GRAM, NO_APPLY, ("PROBE", "W = 21, 21, (1 << 20) // 8",
                             "W = 21, 21, (1 << 20) // 8 + 32")],
     "diag_copies_only_by_load": [NO_GRAM, NO_APPLY, BY_LOAD],
-    # the copies alone under other rings: bytes in flight per SM and the
+    # the copies alone under another ring: bytes in flight per SM and the
     # length of each row's segment (tile × 4 bytes in f32)
-    "diag_copies_only_3_stages_tile_32_1_block": [NO_GRAM, NO_APPLY]
-    + layout(3, 1, 32),
-    "diag_copies_only_4_stages_tile_32_1_block": [NO_GRAM, NO_APPLY]
-    + layout(4, 1, 32),
-    "diag_copies_only_2_stages_tile_64_1_block": [NO_GRAM, NO_APPLY]
-    + layout(2, 1, 64),
-    "diag_copies_only_4_stages_tile_16_2_blocks": [NO_GRAM, NO_APPLY]
-    + layout(4, 2, 16),
-    "diag_copies_only_3_stages_tile_16_3_blocks": [NO_GRAM, NO_APPLY]
-    + layout(3, 3, 16),
+    "diag_copies_only_tile_64_1_block": [NO_GRAM, NO_APPLY]
+    + layout(1, 64),
 }
 
 PROBE = r'''

@@ -257,15 +257,15 @@ def test_cuda_nk_solve_matches_the_cpu(cuda):
 KB = 4
 
 
-def _stack_inputs(B, k, nwcon, dtype, device, shared_vals):
+def _stack_inputs(B, k, nwcon, dtype, device, shared_vals, kb=KB):
     """kb instances of the quasi-definite operands; with ``shared_vals``
     vals_t is one [k, nwcon] array expanded over the instances (stride 0),
     as a batched solve passes it."""
-    per = [qd_inputs(B, k, nwcon, seed=17 * i + B) for i in range(KB)]
+    per = [qd_inputs(B, k, nwcon, seed=17 * i + B) for i in range(kb)]
     ops = [torch.stack([torch.as_tensor(p[j], dtype=dtype, device=device)
                         for p in per]) for j in range(5)]
     if shared_vals:
-        ops[2] = ops[2][0].expand(KB, k, nwcon)
+        ops[2] = ops[2][0].expand(kb, k, nwcon)
     return ops
 
 
@@ -339,19 +339,24 @@ def test_cuda_quasi_def_instance_axis(cuda, K, k, nwcon, dtype,
 
 @pytest.mark.parametrize("shared_vals", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,k,nwcon", [(21, 8, 4096), (21, 8, 1000),
-                                       (7, 13, 1001)])
-def test_cuda_phi_gram_instance_axis(cuda, B, k, nwcon, dtype, shared_vals):
+@pytest.mark.parametrize("kb,B,k,nwcon", [
+    (KB, 21, 8, 4096), (KB, 21, 8, 1000), (KB, 7, 13, 1001),
+    (35, 21, 8, 512), (5, 21, 8, 4096), (9, 21, 8, 1000), (5, 21, 1, 4096)])
+def test_cuda_phi_gram_instance_axis(cuda, kb, B, k, nwcon, dtype,
+                                     shared_vals):
     """With bw and the stack whole, and as the factor setup calls it (two
-    row blocks, bw = 0)."""
+    row blocks, bw = 0).  The last four rows give the persistent grid
+    more virtual blocks than physical ones (kb·nb > 264 on an H100's 132
+    SMs, never a multiple of 264), nwcon = 1000 a ragged last tile; at
+    k = 1 the Gram reduction has a shared-memory region of its own."""
     dinv, cwinv, vals, bx, bw = _stack_inputs(B, k, nwcon, dtype, cuda,
-                                              shared_vals)
+                                              shared_vals, kb)
     top = B - 1
     for args in ((dinv, cwinv, vals, bx, bw, None),
                  (dinv, cwinv, vals, bx[:, :top], None, bx[:, top:])):
         got = kernels.phi_gram_batched(*args)
         _held_to_plain(got, kernels.phi_gram_plain_batched(*args), dtype)
-        for i in range(KB):
+        for i in range(kb):
             one = kernels.phi_gram(*(None if a is None else a[i]
                                      for a in args))
             assert _bitwise((g[i] for g in got), one)

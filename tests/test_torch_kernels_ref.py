@@ -149,6 +149,73 @@ def test_phi_gram_plan_main_path():
                                                              99584, 2)
 
 
+def test_phi_gram_reduction_shares_the_ring_where_it_fits():
+    """The Gram reduction of a virtual block's end (7 threads × 36
+    micro-tiles × 16 at B = 21) goes to the consumed stage and the tile's
+    yx, two stages, where it fits (k = 8: no extra shared memory); at
+    k = 1 two stages hold 1,984 elements and it gets 4,032 of its own."""
+    ring = 2 * (2 * 8 * 32 + 32)
+    assert kernels._pg_smem_elems(21, 8, 32, 31, False) == 3 * 7936 + ring
+    ring = 2 * (2 * 1 * 32 + 32)
+    assert kernels._pg_smem_elems(21, 1, 32, 31, False) == (3 * 992 + ring
+                                                            + 4032)
+
+
+@pytest.mark.parametrize("kb,W,itemsize,sms", [
+    (4, 1 << 17, 4, 132), (1, 1 << 17, 4, 132), (32, 512, 4, 132),
+    (33, 512, 4, 132), (5, 4096, 8, 132), (3, 1000, 4, 7), (2, 100, 8, 3)])
+def test_phi_gram_grid_walks_each_virtual_block_once(kb, W, itemsize, sms):
+    """The instance-axis launch's persistent grid on a card of ``sms`` SMs
+    (B = 21, k = 8 as the factor setup calls it): nb, the virtual blocks
+    of each instance, is the single launch's grid; at most
+    blocks_per_sm × SMs physical blocks walk the kb·nb virtual blocks,
+    each (instance, block) exactly once, and each instance's tiles fall
+    to its blocks as in the single launch, every tile once."""
+    plan = kernels.phi_gram_plan(21, 8, itemsize, has_bw=False)
+    resident = plan.blocks_per_sm * sms
+    ntiles = -(-W // plan.tile)
+    nb, grid = kernels.phi_gram_grid(plan, W, sms, kb)
+    assert (nb, nb) == kernels.phi_gram_grid(plan, W, sms)
+    assert nb == min(ntiles, resident)
+    assert grid == min(kb * nb, resident) <= resident
+    owner, per_instance = {}, {}
+    for g in range(grid):
+        walk = kernels.phi_gram_walk(nb, grid, kb, ntiles, g)
+        assert walk, f"physical block {g} has no work"
+        for i, b, tiles in walk:
+            assert (i, b) not in owner
+            owner[i, b] = g
+            per_instance.setdefault(i, {})[b] = tiles
+    assert set(owner) == {(i, b) for i in range(kb) for b in range(nb)}
+    single = {b: tiles for g in range(nb)
+              for _, b, tiles in kernels.phi_gram_walk(nb, nb, 1, ntiles,
+                                                       g)}
+    assert sorted(t for ts in single.values() for t in ts) == list(
+        range(ntiles))
+    for i in range(kb):
+        assert per_instance[i] == single
+
+
+def test_phi_gram_grid_main_path_shapes():
+    """Phase 3b's kb = 4 at nwcon = 2^17: one wave of 264 blocks, block g
+    taking one block of each instance in turn, rotated by 4096 % 264 =
+    136 per instance so that no physical block walks more than
+    ceil(4 · 4096 / 264) = 63 tiles (64 without the rotation); phase 22's
+    kb = 32 at nwcon = 512 (16 tiles): 264 blocks over 512 virtual
+    blocks, 248 of them taking two."""
+    plan = kernels.phi_gram_plan(21, 8, 4, has_bw=False)
+    assert kernels.phi_gram_grid(plan, 1 << 17, 132, 4) == (264, 264)
+    walk = kernels.phi_gram_walk(264, 264, 4, 4096, 7)
+    assert [(i, b) for i, b, _ in walk] == [(0, 7), (1, 143), (2, 15),
+                                            (3, 151)]
+    assert max(sum(len(t) for _, _, t in kernels.phi_gram_walk(
+        264, 264, 4, 4096, g)) for g in range(264)) == 63
+    assert kernels.phi_gram_grid(plan, 512, 132, 32) == (16, 264)
+    counts = [len(kernels.phi_gram_walk(16, 264, 32, 16, g))
+              for g in range(264)]
+    assert counts.count(2) == 248 and counts.count(1) == 16
+
+
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("k", [1, 8, 13])
 @pytest.mark.parametrize("B", [1, 7, 21, 22, 64, 65, 128, 129])
