@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits nonzero without the final line).
-Phases 1-3b run in this process alone; then phases 4-37 run in five
+Phases 1-3b run in this process alone; then phases 4-38 run in seven
 child processes of this script at once, all on the one card, each a
 group of phases in order (GROUPS: a phase and the later ones that read
 its results share a group).  Each group's output is printed whole once
@@ -12,7 +12,7 @@ all have ended, with each phase's end on the script's clock; a group that
 fails, or is still running DEADLINE_S seconds after the start, ends every
 group and fails the script.  The card is mostly idle in these phases (the
 host's Python paces them), so their seconds per iteration are taken
-beside four other processes on the same card and host:
+beside six other processes on the same card and host:
 
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
@@ -66,9 +66,9 @@ beside four other processes on the same card and host:
    reach 1e-5 here), with the float32 compliance's error against float64;
 7. the bench configuration: FusedMMA on FEMTopology(96, 48, cg_iters=25,
    solver="mgcg"), float32, 60 outer iterations; fobj must fall in
-   bench.py's band (0.10, 0.18) with infeasibility < 1e-8.  The run
-   writes its full state every 10 outer iterations (checkpoint_path) and
-   keeps each file, for phase 34;
+   bench.py's band (0.10, 0.18) with infeasibility < 1e-8.  The run, in
+   windows of 10 outer iterations (chunk=10), writes its full state every
+   10 (checkpoint_path) and keeps each file, for phase 34;
 8. card against host in float64: FusedMMA on FEMTopology(24, 12, mgcg,
    cg_iters 25) for 10 outer iterations and on DMOFEMTopology(12, 6,
    cg_iters 120) for 8 (cut from 20 and 15), once with CUDA tensors and
@@ -214,8 +214,9 @@ FusedEigenTR and the host EigenSubproblem); each prints its wall seconds:
    N=6, cg_iters=30, solver="mgcg", lobpcg_iters=60) in float32, 65,536
    design variables and 212,355 dofs, through
    build_fused_tr({"tr_max_iterations": 1}) and 3 calls of
-   solve(state0=...), each resuming the last and running one more outer
-   iteration (3 outer iterations, cut from the flagship's 40).  It prints
+   solve(state0=..., jit_loop=False), each resuming the last and running
+   one more outer iteration (3 outer iterations, cut from the flagship's
+   40).  It prints
    the construction seconds and the lam_target calibration's LOBPCG block
    iterations, ks_rho/lam_target^2 (paropt_tpu measured 5.37e10), seconds
    and host reads per outer iteration, LOBPCG block iterations per
@@ -308,16 +309,20 @@ reference's user surface; each prints its wall seconds:
    before phase 26, beside the card's phases);
 34. checkpoints at full width: (a) fused_ip_optimize on
    SyntheticTopology(2^20) in float32 with phase 4's settings,
-   write_output_frequency 10 and ip_checkpoint_file must end as phase 4
-   does (iterations, fobj and x bit for bit); the iteration-10 file,
-   restored with restore_state and resumed, must end the same way; the
-   file's size and write time are printed; (b) phase 13's host
+   write_output_frequency 10 and ip_checkpoint_file (the hook at the
+   'auto' windows' boundaries, as JAX's: iterations 1, 2 and then every
+   64 or at the end) must end as phase 4 does (iterations, fobj and x bit
+   for bit); a first solve capped at 10 iterations writes its iteration-10
+   state at its last boundary, and that file, restored with restore_state
+   (it must hold k = 10) and resumed under the full cap, must end the same
+   way; the file's size and write time are printed; (b) phase 13's host
    InteriorPoint with optimize(checkpoint=...): the file read back by
    read_solution_file equals the state written bit for bit and the
    resumed solve converges; (c) phase 7's FusedMMA run on FEMTopology(96,
    48) wrote its state with checkpoint_path at cadence 10: its
-   iteration-30 file, resumed for 30 more outer iterations, must end on
-   phase 7's 60-iteration fobj and x bit for bit;
+   iteration-30 file, resumed by a solver capped at 60 (the absolute
+   count, JAX's rule), must end on phase 7's 60-iteration fobj and x bit
+   for bit;
 35. the reference's surface at full width in float64 on the card: (a) a
    compat.Problem written here with numpy fill callbacks (the objective,
    the volume constraint and the n/8 block constraints of
@@ -384,6 +389,37 @@ group; a child that fails fails the script:
    value; four ranks sum in another order, so (b)'s largest difference
    from its own plain run over the iterations is printed, not held),
    with each rank's peak memory beside (a)'s.
+
+Phase 38 runs in two groups of its own, (a)-(b) and (c): the fused
+solvers' chunked execution (jit_loop / chunk,
+paropt_torch/utils/chunked.py), JAX's resume rule and the repo's example
+programs on the card:
+
+38. (a) phase 4's solve (FusedIP, SyntheticTopology(2^20), float32) with
+   jit_loop=True in one window, in windows of 5 and 'auto': each ends on
+   the one-window solve's iterations, fobj and x bit for bit, launches
+   all three kernels, and the windows of 5 call on_chunk at the
+   iterations JAX's run_chunked gives; bench.py's FusedMMA 96x48 (phase
+   7) and FusedTR 48x24 (phase 10) in windows of 3 against one window:
+   the same bits, the write_output hook at JAX's windows; phase 24's
+   batched FusedTR at n = 2^20 float32 (k = 4) in windows of 2 against
+   one window: the same counts and bits, every kernel launched with its
+   instance axis.
+   The kernels line carries the windows-of-5 run's launches
+   (chunked_launches).  (b) FusedMMA 96x48 resumed from its state at
+   outer iteration 30: the default stops at the absolute cap (60: the
+   uninterrupted run's bits; 40: 40), jit_loop=False runs the cap more
+   (10: 40, the bits of the default's 40).  (c) Each of the 20 programs of
+   paropt_torch/examples at the JAX script's default arguments (a program
+   that took more than ~30 s of the card's time runs fewer outer
+   iterations: EXAMPLE_CUTS, printed), in build/phase38: its seconds,
+   launches, result and last lines printed, and its result held
+   (EXAMPLE_HOLDS): the converged flag where the JAX script converges at
+   its uncut defaults, its objective and other numbers within 1e-6
+   relative (float64) or 1e-2 (the three float32 programs) of the port's
+   float64 run of the same program and cut on the CPU;
+   openmdao_paraboloid must end with the JAX script's message when
+   openmdao is absent.
 Only torch and numpy are used.
 """
 
@@ -955,10 +991,10 @@ def phase_mma_full(torch, dtype, nex=768, ney=384, iters=20):
 
 def phase_mma_bench(torch):
     """bench.py's MMA configuration as a correctness check.  The run also
-    writes its full state every 10 outer iterations (``checkpoint_path``)
-    and keeps each file as the next is written; returns fobj and x after
-    the 60 outer iterations and the kept files by iteration (phase 34
-    resumes the iteration-30 one to them)."""
+    writes its full state every 10 outer iterations (``checkpoint_path``,
+    at the boundaries of windows of 10) and keeps each file as the next is
+    written; returns fobj and x after the 60 outer iterations and the kept
+    files by iteration (phase 34 resumes the iteration-30 one to them)."""
     import shutil
 
     from paropt_torch.models.fem_topology import FEMTopology
@@ -981,7 +1017,7 @@ def phase_mma_bench(torch):
                              "mma_output_file": None, "dtype": "float32",
                              "write_output_frequency": 10})
     t0 = time.perf_counter()
-    res, state = solver.solve(checkpoint_path=str(path))
+    res, state = solver.solve(chunk=10, checkpoint_path=str(path))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     log(f"[mma 96x48 float32] outer iterations {res['niter']}, inner "
@@ -2324,7 +2360,8 @@ NO_QD_REASON = ("the frequency problems have no sparse constraints (nwcon "
 def phase_eig3d_full(torch):
     """Phase 26: FusedEigenTR on the JAX package's 3-D eigen flagship in
     float32, EIG3D_ITERS outer iterations, each one call of
-    ``solve(state0=...)`` resuming the last; returns the kernel launches of
+    ``solve(state0=..., jit_loop=False)`` resuming the last (one more outer
+    iteration per call under tr_max_iterations 1); returns the kernel launches of
     those iterations and the seconds per outer iteration."""
     from paropt_torch.models.fem_frequency import FrequencyTopology3D
     from paropt_torch.ops import kernels
@@ -2363,7 +2400,7 @@ def phase_eig3d_full(torch):
     state, fobjs, finite, rhos = None, [], [], []
     t0 = time.perf_counter()
     for _ in range(EIG3D_ITERS):
-        res, state = solver.solve(state0=state)
+        res, state = solver.solve(state0=state, jit_loop=False)
         fobjs.append(res["fobj"])
         rhos.append(state.rho)
         finite.append(torch.isfinite(res["x"]).all() & torch.isfinite(
@@ -2975,13 +3012,13 @@ def _bitwise(torch, a, b):
 def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
                       mma_files):
     """Phase 34: checkpoints at full width (a) of the fused IP at n = 2^20
-    in float32 (ip_checkpoint_file, resumed from the iteration-10 file),
-    (b) of the host IP (optimize(checkpoint=...), read_solution_file) and
-    (c) of FusedMMA on the 96x48 bench configuration (phase 7's
-    checkpoint_path files, ``mma_files``, resumed from iteration 30).
-    Returns the launches of (a)'s solve and of (b)'s."""
-    import shutil
-
+    in float32 (ip_checkpoint_file: a solve capped at 10 iterations writes
+    its k = 10 state at its last window's boundary, which is resumed under
+    the full cap), (b) of the host IP (optimize(checkpoint=...),
+    read_solution_file) and (c) of FusedMMA on the 96x48 bench
+    configuration (phase 7's checkpoint_path files, ``mma_files``, resumed
+    from iteration 30).  Returns the launches of (a)'s full solve and of
+    (b)'s."""
     from paropt_torch import InteriorPoint
     from paropt_torch.ip_fused import fused_ip_optimize
     from paropt_torch.models.fem_topology import FEMTopology
@@ -2993,32 +3030,24 @@ def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
     BUILD.mkdir(exist_ok=True)
     tag = f"[checkpoint fused ip n={N_MAIN} float32]"
     path = BUILD / "chip_smoke_ip.pt"
-    kept = {}
+    mid_path = BUILD / "chip_smoke_ip_10.pt"
 
-    def problem(cls=SyntheticTopology):
-        return cls(n=N_MAIN, block=BLOCK, dtype=torch.float32,
-                   device="cuda")
+    def problem():
+        return SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                                 device="cuda")
 
     opts = {"dtype": "float32", "qn_subspace_size": MSUB,
             "qn_subspace_auto": False, "abs_res_tol": 1e-6,
             "iterative_refinement_steps": 0, "write_output_frequency": 10}
-    # the template: a solve's state of this problem (one step)
-    _, template = fused_ip_optimize(problem(), dict(
-        opts, max_major_iters=1, write_output_frequency=0))
-
-    class Kept(SyntheticTopology):
-        """Keeps a copy of the checkpoint file at each write-output call
-        (it then holds the previous cadence's state)."""
-
-        def write_output(self, it, x):
-            if path.exists():
-                k = int(restore_state(str(path), template).k)
-                kept[k] = BUILD / f"chip_smoke_ip_{k}.pt"
-                shutil.copy(path, kept[k])
-
+    # the mid-solve file: the facade's windows ('auto') end at the cap, 10,
+    # whose boundary is the cadence's and writes the state of iteration 10
+    _, mid_state = fused_ip_optimize(problem(), dict(
+        opts, max_major_iters=10, ip_checkpoint_file=str(mid_path)))
+    check(int(mid_state.k) == 10, f"the capped solve stopped at "
+          f"{int(mid_state.k)}, not 10")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res, state = fused_ip_optimize(problem(Kept), dict(
+    res, state = fused_ip_optimize(problem(), dict(
         opts, ip_checkpoint_file=str(path)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3028,24 +3057,23 @@ def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
     write_s = time.perf_counter() - t1
     log(f"{tag} with ip_checkpoint_file at cadence 10: {res['niter']} "
         f"iterations (phase 4: {ip_iters}), fobj {res['fobj']!r} (phase 4: "
-        f"{ip_fobj!r}), {wall:.3f} s; checkpoints kept of iterations "
-        f"{sorted(kept)}"
-        f"; file {path.stat().st_size / 2**20:.1f} MiB, written in "
-        f"{write_s:.3f} s; launches {launches}")
+        f"{ip_fobj!r}), {wall:.3f} s; file {path.stat().st_size / 2**20:.1f}"
+        f" MiB, written in {write_s:.3f} s; launches {launches}")
     check(res["niter"] == ip_iters and res["fobj"] == ip_fobj
           and _bitwise(torch, state.vars.x, ip_x),
           "the checkpointing solve does not end as phase 4 does")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched")
-    check(10 in kept, f"no iteration-10 checkpoint: {sorted(kept)}")
-    restored = restore_state(str(kept[10]), state)
+    restored = restore_state(str(mid_path), state)
+    check(int(restored.k) == 10, f"the file of the capped solve holds "
+          f"iteration {int(restored.k)}, not 10")
     t0 = time.perf_counter()
     res2, state2 = fused_ip_optimize(problem(), dict(
         opts, write_output_frequency=0), state0=restored)
     torch.cuda.synchronize()
-    log(f"{tag} resumed from iteration {int(restored.k)}: {res2['niter']} "
-        f"iterations, fobj {res2['fobj']!r} "
-        f"({time.perf_counter() - t0:.3f} s)")
+    log(f"{tag} the capped solve's file (iteration {int(restored.k)}) "
+        f"resumed under the full cap: {res2['niter']} iterations, fobj "
+        f"{res2['fobj']!r} ({time.perf_counter() - t0:.3f} s)")
     check(res2["niter"] == ip_iters and res2["fobj"] == ip_fobj
           and _bitwise(torch, state2.vars.x, ip_x),
           "the resumed solve does not end on the uninterrupted one")
@@ -3088,12 +3116,12 @@ def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
           "the final state does not read back bit for bit")
 
     # (c) FusedMMA on the 96x48 bench configuration: phase 7's run wrote
-    # its state every 10 outer iterations; 30 more from its iteration-30
-    # file
+    # its state every 10 outer iterations; its iteration-30 file resumed
+    # to the absolute count 60 (JAX's rule)
     tag = "[checkpoint mma 96x48 float32]"
     prob = FEMTopology(96, 48, cg_iters=25, solver="mgcg",
                        dtype=torch.float32, device="cuda")
-    solver = FusedMMA(prob, {"mma_max_iterations": 30,
+    solver = FusedMMA(prob, {"mma_max_iterations": 60,
                              "mma_output_file": None, "dtype": "float32"})
     check(30 in mma_files, f"phase 7 kept no iteration-30 checkpoint: "
           f"{sorted(mma_files)}")
@@ -3104,7 +3132,7 @@ def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
     torch.cuda.synchronize()
     mma_launches = dict(kernels.LAUNCHES)
     log(f"{tag} phase 7's iteration-{int(restored.k)} checkpoint (cadence "
-        f"10) resumed for 30 more outer iterations: fobj {res['fobj']!r} "
+        f"10) resumed to outer iteration 60: fobj {res['fobj']!r} "
         f"(phase 7's uninterrupted 60: {mma_fobj!r}), {res['niter']} outer "
         f"iterations, {time.perf_counter() - t0:.2f} s; launches "
         f"{mma_launches}")
@@ -3113,7 +3141,7 @@ def phase_checkpoints(torch, ip_iters, ip_fobj, ip_x, mma_fobj, mma_x,
     check(res["niter"] == 60 and res["fobj"] == mma_fobj
           and _bitwise(torch, st.x, mma_x),
           "the resumed MMA does not end on phase 7's 60-iteration run")
-    for p in [path, npz] + list(kept.values()) + list(mma_files.values()):
+    for p in [path, mid_path, npz] + list(mma_files.values()):
         p.unlink(missing_ok=True)
     log(f"[checkpoint] phase 34 took {time.perf_counter() - t_phase:.2f} s")
     return launches, host_launches
@@ -3587,7 +3615,350 @@ def phase_fem_sharded(torch):
     return a["eigtr"]["sharded"]["launches"]
 
 
-# phases 4-37 as steps on a shared dict: each reads what an earlier step of
+# phase 38: the fused solvers' chunked execution, JAX's resume rule and the
+# repo's examples on the port
+CHUNK_IP = 5            # 38(a)'s int window on the main path
+CHUNK_OUTER = 3         # and on bench.py's FusedMMA and FusedTR
+EXAMPLES = ("brachistochrone", "cart_pole", "cholesky", "cops_electron",
+            "dmo_topology", "dmo_truss", "eigenvalue", "fem_frequency",
+            "fem_topology", "fem_topology3d", "fem_topology_tr", "maratos",
+            "openmdao_paraboloid", "reduced_problem", "rosenbrock", "sellar",
+            "small_problems", "sparse_rosenbrock", "ssto", "topology")
+# the examples that take more than ~30 s of the card's time at the JAX
+# script's defaults, with the flags and the main's keywords (cart_pole's
+# cap is an argument of its main, not a flag) that cut their outer
+# iterations (each
+# alone on an H100 at the defaults or at a few iterations, this script's
+# phase 38 and scripts/torch_time_examples.py: cart_pole 339 s
+# for 109 iterations, 34 s for 10; fem_frequency 107 s for 5, 22 s of it
+# the model's calibration; fem_topology 5.6 s for 5 of 60; fem_topology3d
+# 4.9 s for 5 of 40; fem_topology_tr 14.8 s for 5 of 40 with its 4
+# batched starts)
+EXAMPLE_CUTS = {"cart_pole": ([], {"max_iters": 8}),
+                "fem_frequency": (["--iters", "1"], {}),
+                "fem_topology": (["--iters", "30"], {}),
+                "fem_topology3d": (["--iters", "30"], {}),
+                "fem_topology_tr": (["--iters", "12"], {})}
+
+# 38(c)'s hold on each example's result, by path into what its main()
+# returns: True, the flag holds (where the JAX script converges at its
+# uncut defaults); ("<", b), below b; a number, within EXAMPLE_RTOL of the
+# port's run of the same program and cut on the CPU in float64 (printed by
+# `python3 scripts/torch_time_examples.py --cuts --device cpu`), plus
+# EXAMPLE_ATOL for values near 0.  float64 on the card differs from the CPU
+# only in summation order; topology, fem_topology3d and fem_topology_tr
+# run float32 on the card and are held at F32_EXAMPLE_RTOL (their f32
+# runs ended 7e-5 to 3.7e-3 from the CPU's float64, topology's at another
+# iteration, as its script's float32 tolerances stop it sooner)
+EXAMPLE_RTOL, EXAMPLE_ATOL, F32_EXAMPLE_RTOL = 1e-6, 1e-9, 1e-2
+F32_EXAMPLES = ("topology", "fem_topology3d", "fem_topology_tr")
+EXAMPLE_HOLDS = {
+    "brachistochrone": {"converged": True, "tf": 1.8017044167736167},
+    "cart_pole": {"fobj": 1.3076596529901883},
+    "cholesky": {"0/nnz_amd": 3800, "1/nnz_amd": 20462,
+                 "2/nnz_amd": 107290, "0/residual": ("<", 1e-10),
+                 "1/residual": ("<", 1e-10), "2/residual": ("<", 1e-10)},
+    "cops_electron": {"converged": True, "energy": 150.88156833375507},
+    "dmo_topology": {"converged": True, "fobj": 0.008022932941832605,
+                     "mass": 0.29993063419882515},
+    "dmo_truss": {"fobj": 1.5845817701547584},
+    "eigenvalue": {"converged": True, "fobj": 0.510436412941218},
+    "fem_frequency": {"mass": 0.950001027012103,
+                      "freqs/0": 0.012910915066087667},
+    "fem_topology": {"fobj": 0.1633437808147086},
+    "fem_topology3d": {"fobj": 0.15234431678001506,
+                       "volume": 0.29993224805313523},
+    "fem_topology_tr": {"fobj": 0.3088204315048228,
+                        "batched_fobj/0": 0.28847009650569627,
+                        "batched_fobj/3": 0.3011599610861806},
+    "maratos": {"converged": True, "fobj": 1.6715728751956933,
+                "x/0": 1.4142135623572025},
+    "reduced_problem": {"full/1": 0.45000043712142496,
+                        "full/2": 0.45000043712142496},
+    "rosenbrock": {"converged": True, "fobj": 1.1405980075209335e-13,
+                   "x/0": 0.9999996624523957},
+    "sellar": {"converged": True, "fobj": 0.7500454041638754},
+    "small_problems": {"convex quadratic/best": 0.31250001653720605,
+                       "quartic-quadratic/best": -0.49999996533888147,
+                       "double well/best": 0.4999999999999999,
+                       "sine saddle/best": -31.180733385187974,
+                       "rosenbrock/best": 8.295073371128154e-17},
+    "sparse_rosenbrock": {"converged": True, "fobj": 8.733964530427047e-17},
+    "ssto": {"converged": True, "tf": 481.89706828440603},
+    "topology": {"converged": True, "fobj": 2.405844503929197},
+}
+
+
+def _example_holds(name, out):
+    """The entries of EXAMPLE_HOLDS[name] that ``out`` misses, each as
+    (path, value, hold, relative gap or None), and the largest relative
+    gap of its numbers to their references."""
+    rtol = F32_EXAMPLE_RTOL if name in F32_EXAMPLES else EXAMPLE_RTOL
+    misses, largest = [], 0.0
+    for path, hold in EXAMPLE_HOLDS[name].items():
+        value = out
+        for key in path.split("/"):
+            value = value[int(key)] if isinstance(value, list) else value[key]
+        if hold is True:
+            ok, gap = bool(value), None
+        elif isinstance(hold, tuple):
+            ok, gap = math.isfinite(value) and abs(value) < hold[1], None
+        else:
+            gap = abs(value - hold) / max(abs(hold), 1e-300)
+            ok = (math.isfinite(value)
+                  and abs(value - hold) <= rtol * abs(hold) + EXAMPLE_ATOL)
+            largest = max(largest, gap)
+        if not ok:
+            misses.append((path, value, hold, gap))
+    return misses, largest
+
+
+def _jax_windows(chunk, steps, final_k):
+    """The iterations at which JAX's run_chunked calls on_chunk for an int
+    ``chunk`` from k = 0 (paropt_tpu/utils/chunked.py:64-69): a boundary
+    at each multiple of ``chunk`` before the window of the last of
+    ``steps`` steps, then the final count."""
+    windows = -(-steps // chunk)
+    return [chunk * i for i in range(1, windows)] + [final_k]
+
+
+def _unique(ks):
+    """A write_output hook of cadence 1 fires once per count."""
+    return sorted(set(ks))
+
+
+def _chunked_ip(torch):
+    """38(a) on the main path: FusedIP at n = 2^20 float32 with
+    jit_loop=True in one window, in windows of CHUNK_IP and 'auto'.
+    Returns the launches of the chunked run."""
+    from paropt_torch.ops import kernels
+    tag = f"[chunked ip n={N_MAIN} float32]"
+    fused, data, x0, qn0 = _build_solver(torch, N_MAIN, torch.float32,
+                                         "cuda")
+    fused.solve(x0, data, (), qn0, None, max_iters=2)          # warm-up
+    one = fused.solve(x0, data, (), qn0, None, jit_loop=True)
+    runs = {}
+    for chunk in (CHUNK_IP, "auto"):
+        seen = []
+        kernels.reset_launches()
+        reads = fused.syncs.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = fused.solve(x0, data, (), qn0, None, jit_loop=True, chunk=chunk,
+                         on_chunk=lambda s: seen.append(int(s.k)))
+        torch.cuda.synchronize()
+        runs[chunk] = (st, seen, dict(kernels.LAUNCHES),
+                       time.perf_counter() - t0, fused.syncs.count - reads)
+    n = int(one.k)
+    for chunk, (st, seen, launches, wall, reads) in runs.items():
+        log(f"{tag} chunk={chunk!r}: {int(st.k)} iterations (one window: "
+            f"{n}), fobj {float(st.fobj)!r} (one window: "
+            f"{float(one.fobj)!r}), hook at {seen}, {reads} host reads, "
+            f"{wall:.3f} s; launches {launches}")
+        check(int(st.k) == n and torch.equal(st.vars.x, one.vars.x)
+              and torch.equal(st.fobj, one.fobj),
+              f"chunk={chunk!r} does not end on the one-window solve's bits")
+        for name, count in launches.items():
+            check(count > 0, f"kernel {name} was not launched in the "
+                  f"chunk={chunk!r} solve")
+    steps = n + 1 if bool(one.converged) else n
+    want = _jax_windows(CHUNK_IP, steps, n)
+    check(bool(one.converged), "the one-window solve did not converge")
+    check(runs[CHUNK_IP][1] == want, f"hook at {runs[CHUNK_IP][1]}, JAX's "
+          f"rule gives {want}")
+    check(runs["auto"][1][:2] == [1, 2], "'auto' did not probe iterations "
+          "1 and 2")
+    return runs[CHUNK_IP][2]
+
+
+def _chunked_outer(torch, kind):
+    """38(a) on bench.py's FusedMMA 96x48 (phase 7) or FusedTR 48x24
+    (phase 10), float32: chunk=CHUNK_OUTER against chunk=None, the hook
+    at JAX's windows.  Returns the unchunked solver and its final state."""
+    from paropt_torch.models.fem_topology import FEMTopology
+    from paropt_torch.mma import FusedMMA
+    mma = kind == "mma"
+    mesh = (96, 48) if mma else (48, 24)
+    tag = f"[chunked {kind} {mesh[0]}x{mesh[1]} float32]"
+    out = {}
+    for chunk in (None, CHUNK_OUTER):
+        prob = FEMTopology(*mesh, cg_iters=25, solver="mgcg",
+                           dtype=torch.float32, device="cuda")
+        seen = []
+        prob.write_output = lambda it, x: seen.append(int(it))
+        if mma:
+            solver = FusedMMA(prob, {"mma_max_iterations": 60,
+                                     "mma_output_file": None,
+                                     "dtype": "float32",
+                                     "write_output_frequency": 1})
+        else:
+            solver = _tr_solver(prob, "float32",
+                                tr_write_output_frequency=1)
+        t0 = time.perf_counter()
+        res, st = solver.solve(chunk=chunk)
+        torch.cuda.synchronize()
+        out[chunk] = (solver, res, st, seen, time.perf_counter() - t0)
+        log(f"{tag} chunk={chunk!r}: {res['niter']} outer iterations, fobj "
+            f"{res['fobj']!r}, hook at {seen}, "
+            f"{out[chunk][4]:.2f} s")
+    (s0, r0, st0, _, _), (_, r1, st1, seen, _) = out[None], out[CHUNK_OUTER]
+    x0, x1 = (st0.x, st1.x) if mma else (st0.xk, st1.xk)
+    check(r1["niter"] == r0["niter"] and r1["fobj"] == r0["fobj"]
+          and torch.equal(x0, x1), f"{tag} chunk={CHUNK_OUTER} does not end "
+          "on the one-window solve's bits")
+    n = r0["niter"]
+    steps = n + 1 if (mma and r0["converged"]) else n
+    want = _unique(_jax_windows(CHUNK_OUTER, steps, n))
+    check(seen == want, f"{tag} hook at {seen}, JAX's rule gives {want}")
+    return s0, st0
+
+
+def _chunked_batched(torch):
+    """38(a): FusedTR.solve_batched on phase 24's configuration (k = KB
+    starts of SyntheticTopology(2^20), float32) in windows of 2 against one
+    window: the same counts and bits, every kernel launched with its
+    instance axis."""
+    from paropt_torch.models.topology import SyntheticTopology
+    from paropt_torch.ops import kernels
+    tag = f"[chunked batched tr k={KB} n={N_MAIN} float32]"
+    prob = SyntheticTopology(n=N_MAIN, block=BLOCK, dtype=torch.float32,
+                             device="cuda")
+    x0, _, _ = prob.get_vars_and_bounds()
+    x0s = _starts(torch, x0, KB, 0.5, 1.5)
+    _, one = _tr_solver(prob, "float32").solve_batched(x0s, chunk=None)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, st = _tr_solver(prob, "float32").solve_batched(x0s, chunk=2)
+    torch.cuda.synchronize()
+    batched = dict(kernels.BATCHED_LAUNCHES)
+    log(f"{tag} chunk=2: outer iterations {st.k.tolist()} (one window: "
+        f"{one.k.tolist()}), fobj {res['fobj'].tolist()}, "
+        f"{time.perf_counter() - t0:.3f} s; instance-axis launches "
+        f"{batched}")
+    check(st.k.tolist() == one.k.tolist() and torch.equal(st.xk, one.xk)
+          and torch.equal(st.fk, one.fk),
+          f"{tag} windows of 2 do not end on the one-window batch's bits")
+    check(bool(res["converged"].all()), f"{tag} an instance did not "
+          "converge")
+    for name, count in batched.items():
+        check(count > 0, f"{tag} kernel {name} had no instance-axis launch")
+
+
+def _resume_rule(torch, solver, final):
+    """38(b): FusedMMA 96x48 from its state at k = 30: the default stops
+    at the absolute cap (60: the uninterrupted run's bits; 40: 40), and
+    jit_loop=False runs the cap more (10 from 30: 40, the bits of the
+    default's 40)."""
+    tag = "[resume mma 96x48 float32]"
+    mo = solver._mo
+
+    def capped(n, **kw):
+        solver._mo = mo._replace(max_iterations=n)
+        try:
+            return solver.solve(**kw)
+        finally:
+            solver._mo = mo
+
+    _, st30 = capped(30, chunk=None)
+    check(int(st30.k) == 30, f"{tag} the first solve stopped at "
+          f"{int(st30.k)}")
+    rows, ends = [], {}
+    for cap, jit_loop, want in ((60, True, 60), (40, True, 40),
+                                (10, False, 40)):
+        res, st = capped(cap, state0=st30, jit_loop=jit_loop)
+        rows.append((cap, jit_loop, res["niter"]))
+        check(res["niter"] == want, f"{tag} cap {cap}, jit_loop={jit_loop}: "
+              f"{res['niter']} outer iterations, JAX's rule gives {want}")
+        ends[(cap, jit_loop)] = st.x
+    check(torch.equal(ends[(60, True)], final.x), f"{tag} the default "
+          "resume to 60 does not land on the uninterrupted run's bits")
+    check(torch.equal(ends[(10, False)], ends[(40, True)]), f"{tag} 10 "
+          "more steps (jit_loop=False) and the default to 40 differ")
+    log(f"{tag} from k = 30, (cap, jit_loop, outer iterations): {rows}; "
+        "the default to 60 holds the uninterrupted run's bits, 10 more "
+        "steps those of the default to 40")
+
+
+def phase_examples(torch):
+    """Phase 38(c): every example program's main() at the JAX script's default
+    arguments (less the cuts in EXAMPLE_CUTS), in build/phase38; its
+    output in build/phase38/<name>.out, its last lines, result and seconds
+    printed, its result held to EXAMPLE_HOLDS.  openmdao_paraboloid must
+    end with the JAX script's message when openmdao is absent."""
+    import contextlib
+    import importlib
+    import io
+    from paropt_torch.ops import kernels
+    work = BUILD / "phase38"
+    work.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    total = time.perf_counter()
+    try:
+        os.chdir(work)
+        for name in EXAMPLES:
+            argv, kw = EXAMPLE_CUTS.get(name, ([], {}))
+            if argv or kw:
+                cut = " ".join(argv + [f"{k}={v}" for k, v in kw.items()])
+                log(f"[example {name}] cut to {cut} (more than ~30 s of "
+                    f"the card's time at the defaults)")
+            mod = importlib.import_module(f"paropt_torch.examples.{name}")
+            buf = io.StringIO()
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            message, out = None, None
+            with contextlib.redirect_stdout(buf):
+                try:
+                    out = mod.main(list(argv), **kw)
+                except SystemExit as e:
+                    message = e.code
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            (work / f"{name}.out").write_text(text)
+            last = [line for line in text.splitlines() if line.strip()][-3:]
+            log(f"[example {name}] {wall:.2f} s; launches "
+                f"{dict(kernels.LAUNCHES)}; result {out!r}"
+                + (f"; exit {message!r}" if message is not None else ""))
+            for line in last:
+                log(f"[example {name}]   {line}")
+            if name == "openmdao_paraboloid" and out is None:
+                check(isinstance(message, str)
+                      and message.startswith("openmdao is not installed"),
+                      f"openmdao_paraboloid ended with {message!r}")
+            else:
+                check(message is None and isinstance(out, (dict, list)),
+                      f"example {name} ended with {message!r}")
+                misses, largest = _example_holds(name, out)
+                log(f"[example {name}]   held: {len(EXAMPLE_HOLDS[name])} "
+                    f"values, largest relative gap to the CPU's float64 "
+                    f"{largest:.3e}")
+                check(not misses, f"example {name} misses its holds "
+                      f"(path, value, hold, relative gap): {misses}")
+    finally:
+        os.chdir(cwd)
+    log(f"[examples] all {len(EXAMPLES)} in "
+        f"{time.perf_counter() - total:.1f} s")
+
+
+def phase_chunked(torch):
+    """Phase 38 (a) and (b): chunked solves bit-equal to one window (the
+    main path, bench.py's FusedMMA and FusedTR, a batched main path), the
+    hook at JAX's windows, and JAX's resume rule.  Returns (a)'s chunked
+    main-path launches."""
+    t_phase = time.perf_counter()
+    launches = _chunked_ip(torch)
+    solver, final = _chunked_outer(torch, "mma")
+    _chunked_outer(torch, "tr")
+    _chunked_batched(torch)
+    log(f"[chunked] phase 38(a) took {time.perf_counter() - t_phase:.2f} s")
+    t_b = time.perf_counter()
+    _resume_rule(torch, solver, final)
+    log(f"[chunked] phase 38(b) took {time.perf_counter() - t_b:.2f} s")
+    return launches
+
+
+# phases 4-38 as steps on a shared dict: each reads what an earlier step of
 # its group left there; the entries ending in "_launches" (phase 4's is
 # "launches") are the kernels line's columns
 STEPS = {
@@ -3643,6 +4014,8 @@ STEPS = {
     "36": lambda t, c: c.update(sharded_launches=phase_sharded(
         t, c["launches"], c["ip_iters"], c["ip_fobj"], c["ip_x"])),
     "37": lambda t, c: c.update(fem_sharded_launches=phase_fem_sharded(t)),
+    "38": lambda t, c: c.update(chunked_launches=phase_chunked(t)),
+    "38c": lambda t, c: phase_examples(t),
 }
 # after phase 3, each group runs in a process of its own, all at once on
 # the one card: the phases keep the card mostly idle (their hosts' Python
@@ -3654,7 +4027,9 @@ GROUPS = (("4", "5", "6", "7", "8", "13", "16", "34", "36"),
           ("9", "10", "11", "12", "14", "15", "17", "18", "19", "20"),
           ("21", "22", "23", "24", "25", "37"),
           ("26", "27", "29", "30", "31", "32"),
-          ("28", "33", "35"))
+          ("28", "33", "35"),
+          ("38",),
+          ("38c",))
 DEADLINE_S = 1100    # from the script's start; the groups are then ended
 
 

@@ -410,33 +410,31 @@ class FusedEigenTR:
             host=self.syncs)
 
     @spmd
-    def solve(self, state0: Optional[FusedEigTRState] = None, chunk="auto",
-              checkpoint_path=None):
-        """Run the outer loop, reading ``converged`` after each outer
-        iteration; returns (result dict, final state).  Pass a previous
-        final state to resume: the loop runs ``tr_max_iterations`` more
-        outer iterations from it (paropt_tpu's jitted loop stops at that
-        absolute count; ROADMAP queue 3).  The problem's
+    def solve(self, state0: Optional[FusedEigTRState] = None,
+              jit_loop: bool = True, chunk="auto", checkpoint_path=None):
+        """Run the outer loop (paropt_tpu/eig_fused.py:458-488), reading
+        ``converged`` after each outer iteration; returns (result dict,
+        final state).  Pass a previous final state to resume.
+        ``jit_loop`` / ``chunk`` as in `tr.FusedTR.solve`: by default the
+        loop stops at the absolute count ``tr_max_iterations``, in windows
+        sized by ``'auto'``; ``jit_loop=False`` runs ``tr_max_iterations``
+        more outer iterations from the state given.  Nothing is compiled:
+        the final state is the same under any chunk.  The problem's
         ``write_output(it, x)`` fires every ``tr_write_output_frequency``
-        outer iterations, and ``checkpoint_path`` gets the full state at
-        the same cadence (`utils.checkpoint`).  ``chunk`` other than "auto"
-        or None raises: the chunked solve is not ported.  A ``state0``
-        placed on a device mesh (`parallel.sharding.shard_tree`) runs
-        sharded: the QP and the QN update on DTensors, the problem's
+        outer iterations at window boundaries, and ``checkpoint_path`` gets
+        the full state at the same cadence (`utils.checkpoint`).  A
+        ``state0`` placed on a device mesh (`parallel.sharding.shard_tree`)
+        runs sharded: the QP and the QN update on DTensors, the problem's
         ``eval_full`` on its x-strips (`parallel.halo`)."""
-        from .utils.chunked import make_write_output_hook, user_write_output
-        if chunk not in ("auto", None):
-            raise NotImplementedError("the chunked solve is not ported yet")
+        from .utils.chunked import (host_reader, make_write_output_hook,
+                                    outer_loop, user_write_output)
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
                                       checkpoint_path=checkpoint_path)
         state = state0 if state0 is not None else self._state0
-        for _ in range(self._to.max_iterations):
-            state = self._step(state)
-            if hook is not None:
-                hook(state)
-            if self.syncs(state.converged):
-                break
+        state = outer_loop(self._step, lambda st: self.syncs(st.converged),
+                           state, self._to.max_iterations, jit_loop, chunk,
+                           on_chunk=hook, read=host_reader(self.syncs))
         result = {"x": state.xk, "fobj": float(state.fk),
                   "converged": bool(state.converged), "niter": int(state.k),
                   "infeas": float(state.infeas), "l1": float(state.l1),
@@ -455,13 +453,14 @@ class FusedEigenTR:
         converged" per outer iteration; an instance that has converged
         keeps its state bit for bit while the others iterate.
 
-        ``x0_batch``: [k, n] starting points.  ``chunk``: "auto" or None,
-        both the whole loop.  Returns (results, states): ``results`` holds
-        per-instance numpy arrays of fobj, converged, niter, infeas, l1 and
-        linfty (and x [k, n]); ``states`` is the `FusedEigTRState` with a
-        leading k axis."""
-        if chunk not in ("auto", None):
-            raise NotImplementedError("the chunked solve is not ported yet")
+        ``x0_batch``: [k, n] starting points.  ``chunk``: the windows of
+        `utils.chunked.run_chunked_batched` (an int, ``'auto'`` or None);
+        the result is the same under any.  Returns (results, states):
+        ``results`` holds per-instance numpy arrays of fobj, converged,
+        niter, infeas, l1 and linfty (and x [k, n]); ``states`` is the
+        `FusedEigTRState` with a leading k axis."""
+        from .utils.chunked import (batch_reader, run_chunked_batched,
+                                    step_until)
         run = _Run(self.syncs, batched=True)
         s0 = self._state0
         x0_batch = torch.as_tensor(x0_batch, dtype=s0.xk.dtype,
@@ -476,11 +475,15 @@ class FusedEigenTR:
 
         state = run.call(start, (None,) + (0,) * 9, s0, x0_batch, f0, c0,
                          g0, A0, M0, Minv0, h0, V0)
-        for _ in range(self._to.max_iterations):
-            new = self._step(state, run=run)
-            state = run.freeze(state.converged, new, state)
-            if run.all(state.converged):
-                break
+
+        def step(st):
+            return run.freeze(st.converged, self._step(st, run=run), st)
+
+        state = run_chunked_batched(
+            lambda st, k, k_stop: step_until(
+                step, lambda s: run.all(s.converged), st, k, k_stop),
+            state, self._to.max_iterations, chunk,
+            read=batch_reader(self.syncs))
         results = {"x": state.xk,
                    **{key: getattr(state, f).cpu().numpy() for key, f in (
                        ("fobj", "fk"), ("converged", "converged"),

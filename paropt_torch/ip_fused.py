@@ -16,9 +16,12 @@ the ρ update, the in-loop QN update, the Newton-Krylov phase
 (``use_hvec_product``: `_fused_gmres`, unrolled to the subspace size; the
 switch to it is read on the host once per step where JAX's ``lax.cond``
 runs one branch), the non-finite fail-stop, the freeze once converged and
-the facade's whole solve (`fused_ip_optimize`) and k solves run as one
-(`FusedIP.solve_batched`: the step's phases under ``torch.func.vmap``).
-Not ported: the chunked solve.
+the facade's whole solve (`fused_ip_optimize`), k solves run as one
+(`FusedIP.solve_batched`: the step's phases under ``torch.func.vmap``) and
+the chunked solve (``jit_loop`` / ``chunk``, `utils.chunked.run_chunked`):
+nothing is compiled, so ``jit_loop`` keeps JAX's stop rule and hook
+boundaries over the same eager steps, and a chunked solve ends on the
+unchunked one bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .ops.kkt import IPVars, ProblemData
 from .ops.veclib import dot, multi_norm
 from .parallel.sharding import spmd
 from .tree import bvmap, pytree, tmap
+from .utils.chunked import host_reader, run_chunked, step_until
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
            "HostSyncs", "model_from_problem", "data_template_from_problem",
@@ -178,22 +182,43 @@ class FusedIP:
     @spmd
     def solve(self, x0, data: ProblemData, model_params,
               qn_state: Optional[qnmod.QNState] = None, compact=None,
-              max_iters: Optional[int] = None, on_chunk=None,
-              chunk=None, state0: Optional[FusedState] = None
-              ) -> FusedState:
-        """Run to convergence: a host loop over steps that reads
-        ``converged`` after each one.  ``on_chunk(state)`` is called after
-        every step (build it with `utils.chunked.make_write_output_hook`);
-        the chunked execution (``chunk``) is not ported.  ``state0`` (a
-        previous state, e.g. one restored from a checkpoint) resumes the
-        solve from it in place of ``x0``'s initial state."""
-        if chunk is not None:
-            raise NotImplementedError("the chunked solve is not ported yet")
+              jit_loop: bool = False, max_iters: Optional[int] = None,
+              on_chunk=None, chunk=None,
+              state0: Optional[FusedState] = None) -> FusedState:
+        """Run to convergence or ``max_iters`` (default
+        ``opts.max_major_iters``), as paropt_tpu/ip_fused.py:204-240.
+
+        ``jit_loop=False`` (JAX's default): a host loop over steps that
+        reads ``converged`` after each one and calls ``on_chunk(state)``
+        after every step; from ``state0`` it runs ``max_iters`` more steps.
+        ``jit_loop=True``: the loop stops at the absolute count
+        ``max_iters``; with neither ``on_chunk`` nor ``chunk`` it is one
+        call, otherwise `utils.chunked.run_chunked` runs it in windows of
+        ``chunk`` (default ``'auto'``) and calls ``on_chunk`` at each
+        boundary (build it with `utils.chunked.make_write_output_hook`).
+        Nothing is compiled: every form runs the same eager steps, so the
+        final state is the same under any chunk.  (JAX's one-call form
+        runs to ``opts.max_major_iters`` whatever ``max_iters`` says; the
+        port's stops at ``max_iters``.)  ``state0`` (a previous state, e.g.
+        one restored from a checkpoint) resumes the solve from it in place
+        of ``x0``'s initial state."""
         state = (state0 if state0 is not None
                  else self.init(x0, data, model_params, qn_state, compact))
-        return _fused_solve_loop(self.model, self.opts, state, data,
-                                 model_params, compact, self.syncs,
-                                 max_iters=max_iters, on_step=on_chunk)
+        iters = max_iters or self.opts.max_major_iters
+        if not jit_loop:
+            return _fused_solve_loop(self.model, self.opts, state, data,
+                                     model_params, compact, self.syncs,
+                                     max_iters=iters, on_step=on_chunk)
+        window = chunk if chunk is not None else (
+            None if on_chunk is None else "auto")
+
+        def run(s, k, k_stop):
+            return _fused_solve_loop(self.model, self.opts, s, data,
+                                     model_params, compact, self.syncs,
+                                     max_iters=k_stop - k)
+
+        return run_chunked(run, state, iters, window, on_chunk=on_chunk,
+                           read=host_reader(self.syncs))
 
     def solve_batched(self, x0_batch, data: ProblemData, model_params=(),
                       qn_state: Optional[qnmod.QNState] = None, compact=None,
@@ -941,15 +966,17 @@ def _fused_solve_loop(model: ModelFns, opts: FusedIPOptions,
     until every instance is converged, and an instance that is converged
     keeps its state bit for bit while the others step."""
     R = run or _Run(host)
-    for _ in range(max_iters or opts.max_major_iters):
-        new = _fused_step(model, opts, state, d, model_params, compact,
-                          run=R, axes=axes)
-        state = R.freeze(state.converged, new, state)
+
+    def step(s):
+        new = _fused_step(model, opts, s, d, model_params, compact, run=R,
+                          axes=axes)
+        s = R.freeze(s.converged, new, s)
         if on_step is not None:
-            on_step(state)
-        if R.all(state.converged):
-            break
-    return state
+            on_step(s)
+        return s
+
+    n = opts.max_major_iters if max_iters is None else max_iters
+    return step_until(step, lambda s: R.all(s.converged), state, 0, n)
 
 
 # ---------------------------------------------------------------------------
@@ -1031,8 +1058,11 @@ def fused_ip_optimize(problem, options=None, state0=None):
     QN state on the problem's device, runs the solve, and returns (result
     dict shaped like `InteriorPoint.optimize`, final `FusedState`).  The
     ``ip_checkpoint_file`` option writes the full state at the
-    ``write_output_frequency`` cadence; ``state0`` (such a state, restored
-    with `utils.checkpoint.restore_state`) resumes from it."""
+    ``write_output_frequency`` cadence, at the chunk boundaries of
+    ``FusedIP.solve(jit_loop=True, chunk="auto")``, as JAX's
+    (paropt_tpu/ip_fused.py:1082-1084); ``state0`` (such a state, restored
+    with `utils.checkpoint.restore_state`) resumes from it and stops at the
+    absolute count ``max_major_iters``."""
     from .ip import _resolve_qn_storage
     from .tr import _fused_ip_options
     from .utils.chunked import make_write_output_hook, user_write_output
@@ -1068,8 +1098,8 @@ def fused_ip_optimize(problem, options=None, state0=None):
                                   o["write_output_frequency"],
                                   get_x=lambda st: st.vars.x,
                                   checkpoint_path=o["ip_checkpoint_file"])
-    state = fused.solve(x0, data, (), qn0, None, on_chunk=hook,
-                        state0=state0)
+    state = fused.solve(x0, data, (), qn0, None, jit_loop=True,
+                        on_chunk=hook, chunk="auto", state0=state0)
     converged = bool(state.converged)
     result = {
         "x": state.vars.x, "fobj": float(state.fobj),

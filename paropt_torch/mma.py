@@ -809,26 +809,31 @@ class FusedMMA:
 
     @spmd
     def solve(self, state0: Optional[FusedMMAState] = None,
-              checkpoint_path=None):
-        """Run the outer loop: a host loop over outer iterations that reads
-        ``converged`` after each.  Returns (result dict, final state).  Pass
-        a previous final state to resume: the loop runs
-        ``mma_max_iterations`` more outer iterations from it (paropt_tpu's
-        jitted loop stops at that absolute count; ROADMAP queue 3).  The
-        problem's ``write_output(it, x)`` hook fires every
-        ``write_output_frequency`` outer iterations, and ``checkpoint_path``
-        gets the full state at the same cadence (`utils.checkpoint`)."""
-        from .utils.chunked import make_write_output_hook, user_write_output
+              jit_loop: bool = True, chunk="auto", checkpoint_path=None):
+        """Run the outer loop (paropt_tpu/mma.py:766-813); returns (result
+        dict, final state).  Pass a previous final state to resume.
+
+        ``jit_loop=True`` (default): the loop stops at the absolute count
+        ``mma_max_iterations``, run in windows of ``chunk`` outer
+        iterations by `utils.chunked.run_chunked` (an int, ``'auto'``: one
+        timed outer iteration sizes them to ~10 s, or None: one window).
+        ``jit_loop=False``: ``mma_max_iterations`` more outer iterations
+        from the state given, the hook after each.  Both read
+        ``converged`` on the host after every outer iteration; nothing is
+        compiled, so every form runs the same eager steps and the final
+        state is the same under any chunk.  The problem's
+        ``write_output(it, x)`` hook fires every ``write_output_frequency``
+        outer iterations at window boundaries, and ``checkpoint_path`` gets
+        the full state at the same cadence (`utils.checkpoint`)."""
+        from .utils.chunked import (host_reader, make_write_output_hook,
+                                    outer_loop, user_write_output)
         hook = make_write_output_hook(
             user_write_output(self._problem), self._write_freq,
             get_x=lambda st: st.x, checkpoint_path=checkpoint_path)
         state = state0 if state0 is not None else self._state0
-        for _ in range(self._mo.max_iterations):
-            state = self._step(state)
-            if hook is not None:
-                hook(state)
-            if self.syncs(state.converged):
-                break
+        state = outer_loop(self._step, lambda st: self.syncs(st.converged),
+                           state, self._mo.max_iterations, jit_loop, chunk,
+                           on_chunk=hook, read=host_reader(self.syncs))
         # state.fobj is the value at the point the LAST step evaluated;
         # when the loop exits at the iteration cap, x has advanced once
         fobj_final, _, _ = self._ev((), state.x)
@@ -846,13 +851,14 @@ class FusedMMA:
         per outer iteration; an instance that has converged keeps its
         state bit for bit while the others iterate.
 
-        ``x0_batch``: [k, n] starting designs.  ``chunk``: "auto" or None,
-        both the whole loop (the watchdog chunking is not ported).  Returns
-        (results, states): ``results`` holds per-instance numpy arrays of
-        fobj, converged, stalled, niter, infeas, l1 and linfty (and x
-        [k, n]); ``states`` is the `FusedMMAState` with a leading k axis."""
-        if chunk not in ("auto", None):
-            raise NotImplementedError("the chunked solve is not ported yet")
+        ``x0_batch``: [k, n] starting designs.  ``chunk``: the windows of
+        `utils.chunked.run_chunked_batched` (an int, ``'auto'`` or None);
+        the result is the same under any.  Returns (results, states):
+        ``results`` holds per-instance numpy arrays of fobj, converged,
+        stalled, niter, infeas, l1 and linfty (and x [k, n]); ``states`` is
+        the `FusedMMAState` with a leading k axis."""
+        from .utils.chunked import (batch_reader, run_chunked_batched,
+                                    step_until)
         run = _Run(self.syncs, batched=True)
         s0 = self._state0
         x0_batch = torch.as_tensor(x0_batch, dtype=s0.x.dtype,
@@ -860,11 +866,15 @@ class FusedMMA:
         state = run.call(
             lambda st, x: dataclasses.replace(st, x=x, x1=x, x2=x),
             (None, 0), s0, x0_batch)
-        for _ in range(self._mo.max_iterations):
-            new = self._step(state, run=run)
-            state = run.freeze(state.converged, new, state)
-            if run.all(state.converged):
-                break
+
+        def step(st):
+            return run.freeze(st.converged, self._step(st, run=run), st)
+
+        state = run_chunked_batched(
+            lambda st, k, k_stop: step_until(
+                step, lambda s: run.all(s.converged), st, k, k_stop),
+            state, self._mo.max_iterations, chunk,
+            read=batch_reader(self.syncs))
         fobj_final = run.call(lambda x: self._ev((), x)[0], (0,), state.x)
         results = {"x": state.x, "fobj": fobj_final.cpu().numpy(),
                    **{key: getattr(state, f).cpu().numpy() for key, f in (
@@ -880,7 +890,8 @@ _FUSED_MMA_CACHE: "OrderedDict" = OrderedDict()
 _FUSED_MMA_CACHE_MAX = 8
 
 
-def fused_mma_solve(problem, options: Optional[Dict[str, Any]] = None):
+def fused_mma_solve(problem, options: Optional[Dict[str, Any]] = None,
+                    jit_loop: bool = True, chunk="auto"):
     """One-shot convenience wrapper over `FusedMMA` (build + solve).
 
     The built solver is cached per (problem, options), so back-to-back
@@ -906,4 +917,4 @@ def fused_mma_solve(problem, options: Optional[Dict[str, Any]] = None):
                 _FUSED_MMA_CACHE.popitem(last=False)
     elif key is not None:
         _FUSED_MMA_CACHE.move_to_end(key)
-    return solver.solve()
+    return solver.solve(jit_loop=jit_loop, chunk=chunk)

@@ -1461,27 +1461,27 @@ class FusedTR:
             inf_opts, to, lbv, ubv, d_tmpl, (), host=self.syncs)
 
     def solve(self, state0: Optional[FusedTRState] = None,
-              checkpoint_path=None):
-        """Run the outer loop: a host loop over outer iterations that reads
-        ``converged`` after each.  Returns (result dict, final state).  Pass
-        a previous final state to resume: the loop runs
-        ``tr_max_iterations`` more outer iterations from it (paropt_tpu's
-        jitted loop stops at that absolute count; ROADMAP queue 3).  The
-        problem's ``write_output(it, x)`` hook fires every
-        ``tr_write_output_frequency`` outer iterations, and
-        ``checkpoint_path`` gets the full state at the same cadence
-        (`utils.checkpoint`)."""
-        from .utils.chunked import make_write_output_hook, user_write_output
+              jit_loop: bool = True, chunk="auto", checkpoint_path=None):
+        """Run the outer loop (paropt_tpu/tr.py:1383-1417); returns (result
+        dict, final state).  Pass a previous final state to resume.
+        ``jit_loop`` / ``chunk`` as in `FusedMMA.solve`: by default the
+        loop stops at the absolute count ``tr_max_iterations``, in windows
+        sized by ``'auto'``; ``jit_loop=False`` runs ``tr_max_iterations``
+        more outer iterations from the state given.  Nothing is compiled:
+        the final state is the same under any chunk.  The problem's
+        ``write_output(it, x)`` hook fires every
+        ``tr_write_output_frequency`` outer iterations at window
+        boundaries, and ``checkpoint_path`` gets the full state at the same
+        cadence (`utils.checkpoint`)."""
+        from .utils.chunked import (host_reader, make_write_output_hook,
+                                    outer_loop, user_write_output)
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
                                       checkpoint_path=checkpoint_path)
         state = state0 if state0 is not None else self._state0
-        for _ in range(self._to.max_iterations):
-            state = self._step(state)
-            if hook is not None:
-                hook(state)
-            if self.syncs(state.converged):
-                break
+        state = outer_loop(self._step, lambda st: self.syncs(st.converged),
+                           state, self._to.max_iterations, jit_loop, chunk,
+                           on_chunk=hook, read=host_reader(self.syncs))
         result = {"x": state.xk, "fobj": float(state.fk),
                   "converged": bool(state.converged), "niter": int(state.k),
                   "infeas": float(state.infeas), "l1": float(state.l1),
@@ -1498,13 +1498,14 @@ class FusedTR:
         per outer iteration, and an instance that has converged keeps its
         state bit for bit while the others iterate.
 
-        ``x0_batch``: [k, n] starting points.  ``chunk``: "auto" or None,
-        both the whole loop (the watchdog chunking is not ported).  Returns
-        (results, states): ``results`` holds per-instance numpy arrays of
-        fobj, converged, niter, infeas, l1 and linfty (and x [k, n]);
-        ``states`` is the `FusedTRState` with a leading k axis."""
-        if chunk not in ("auto", None):
-            raise NotImplementedError("the chunked solve is not ported yet")
+        ``x0_batch``: [k, n] starting points.  ``chunk``: the windows of
+        `utils.chunked.run_chunked_batched` (an int, ``'auto'`` or None);
+        the result is the same under any.  Returns (results, states):
+        ``results`` holds per-instance numpy arrays of fobj, converged,
+        niter, infeas, l1 and linfty (and x [k, n]); ``states`` is the
+        `FusedTRState` with a leading k axis."""
+        from .utils.chunked import (batch_reader, run_chunked_batched,
+                                    step_until)
         run = _Run(self.syncs, batched=True)
         s0 = self._state0
         x0_batch = torch.as_tensor(x0_batch, dtype=s0.xk.dtype,
@@ -1517,11 +1518,15 @@ class FusedTR:
                                        cwk=cw0)
 
         state = run.call(start, (None, 0), s0, x0_batch)
-        for _ in range(self._to.max_iterations):
-            new = self._step(state, run=run)
-            state = run.freeze(state.converged, new, state)
-            if run.all(state.converged):
-                break
+
+        def step(st):
+            return run.freeze(st.converged, self._step(st, run=run), st)
+
+        state = run_chunked_batched(
+            lambda st, k, k_stop: step_until(
+                step, lambda s: run.all(s.converged), st, k, k_stop),
+            state, self._to.max_iterations, chunk,
+            read=batch_reader(self.syncs))
         results = {"x": state.xk,
                    **{key: getattr(state, f).cpu().numpy() for key, f in (
                        ("fobj", "fk"), ("converged", "converged"),

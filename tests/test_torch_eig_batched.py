@@ -160,7 +160,8 @@ def test_solve_batched_matches_jax_and_single_solves():
 
 def test_solve_batched_without_a_batched_evaluation():
     """A problem with eval_full alone is priced under torch.func.vmap;
-    each instance equals its single solve, and the chunked form raises."""
+    each instance equals its single solve, and the chunked form ends on the
+    same bits."""
     from paropt_torch.eig_fused import EigModel, FusedEigenTR
 
     from .test_eig_fused_step import _opts
@@ -180,5 +181,6 @@ def test_solve_batched_without_a_batched_evaluation():
                                                    int(st.subiters[j]))
         np.testing.assert_allclose(st.xk[j].numpy(), s1.xk.numpy(),
                                    rtol=0.0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        solver.solve_batched(xs, chunk=2)
+    res2, st2 = solver.solve_batched(xs, chunk=2)
+    np.testing.assert_array_equal(res2["niter"], res["niter"])
+    assert torch.equal(st2.xk, st.xk)

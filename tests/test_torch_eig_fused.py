@@ -16,7 +16,8 @@ paropt_tpu.eig_fused on the same numpy inputs, in float64:
   relative, x to 1e-7;
 - the port's own: the non-finite fail-stop, the warm-start basis riding
   the state, the write-output and checkpoint cadence, and the chunked
-  solve, which is not ported."""
+  solve (its windows, its hook boundaries and JAX's resume rule;
+  tests/test_torch_chunked.py holds it against paropt_tpu's)."""
 
 import dataclasses
 import warnings
@@ -226,27 +227,35 @@ def test_write_output_cadence_and_unported_paths(tmp_path):
                                       "tr_l1_tol": 0.0,
                                       "tr_linfty_tol": 0.0})),
                           index=1, qn_b0=1.0)
-    res, state = tf.solve()
+    # the per-step loop (jit_loop=False) fires after every outer iteration
+    res, state = tf.solve(jit_loop=False)
     assert res["niter"] == 7 and calls == [1, 3, 6]
     assert set(res) == {"x", "fobj", "converged", "niter", "infeas", "l1",
                         "linfty", "tr_size", "subiters"}
-    # resumes from a final state
+    # the chunked solve fires at its window boundaries (2, 4, 6, 7), at
+    # the first at or past each multiple of 3, and ends on the same bits
+    calls.clear()
+    res_c, st_c = tf.solve(chunk=2)
+    assert res_c["niter"] == 7 and calls == [2, 4, 6]
+    assert torch.equal(st_c.xk, state.xk)
+    # resumes from a final state by JAX's rule: the default stops at the
+    # absolute cap (7 >= 2: no step), jit_loop=False runs the cap more
     tf._to = tf._to._replace(max_iterations=2)
-    res2, _ = tf.solve(state0=state)
+    res2, st_same = tf.solve(state0=state)
+    assert res2["niter"] == 7 and st_same is state
+    res2, _ = tf.solve(state0=state, jit_loop=False)
     assert res2["niter"] == 9
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tf.solve(chunk=2)
     # checkpoints and solve_batched are ported (tests/
     # test_torch_checkpoint.py and tests/test_torch_eig_batched.py hold
     # them): the full state at the cadence, and two starts at once
     ckpt = str(tmp_path / "state.pt")
-    _, st2 = tf.solve(state0=state, checkpoint_path=ckpt)
+    _, st2 = tf.solve(state0=state, jit_loop=False, checkpoint_path=ckpt)
     from paropt_torch.utils.checkpoint import restore_state
     assert int(restore_state(ckpt, st2).k) == 9
     resb, stb = tf.solve_batched(torch.stack([tf._state0.xk] * 2))
     assert resb["niter"].tolist() == [2, 2] and stb.xk.shape == (2, 8)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tf.solve_batched(torch.zeros((2, 8), dtype=F64), chunk=2)
+    resc, stc = tf.solve_batched(torch.stack([tf._state0.xk] * 2), chunk=1)
+    assert resc["niter"].tolist() == [2, 2] and torch.equal(stc.xk, stb.xk)
     with pytest.raises(ValueError, match="eig_row_model"):
         tef.FusedEigenTR(TTiny(), dict(_opts()), eig_row_model="cubic")
     # the warm-start opt-in is explicit: no V0 parameter, no basis

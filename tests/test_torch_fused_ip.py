@@ -274,8 +274,13 @@ def test_unported_paths_raise_and_tf32_is_off():
     # the batched solve is ported: one step of two instances
     st = tf.solve_batched(torch.stack([x0, 0.5 * x0]), td, max_iters=1)
     assert st.vars.x.shape == (2, 64) and st.k.tolist() == [1, 1]
-    with pytest.raises(NotImplementedError):
-        tf.solve(x0, td, (), chunk=4)
+    # the chunked solve is ported: jit_loop=True stops at the absolute
+    # max_iters in windows of ``chunk``; the default per-step loop (JAX's
+    # jit_loop=False) takes no chunk; both end on the same bits
+    windows = tf.solve(x0, td, (), jit_loop=True, chunk=4, max_iters=6)
+    steps = tf.solve(x0, td, (), chunk=4, max_iters=6)
+    assert int(windows.k) == int(steps.k) == 6
+    assert torch.equal(windows.vars.x, steps.vars.x)
 
 
 def test_import_loads_no_jax():

@@ -317,16 +317,20 @@ def test_write_output_cadence_and_unported_paths(tmp_path):
     prob = Recorded(8, 4, cg_iters=250, dtype=F64, device="cpu")
     solver = tmma.FusedMMA(prob, dict(OPTS, mma_max_iterations=12,
                                       write_output_frequency=5))
-    solver.solve()
+    # the per-step loop (jit_loop=False) fires after every outer iteration
+    solver.solve(jit_loop=False)
     assert calls == [1, 5, 10]
+    # the chunked loop fires at its window boundaries (3, 6, 9, 12)
+    calls.clear()
+    solver.solve(chunk=3)
+    assert calls == [3, 6, 12]
     # checkpoints are ported: the full state at the same cadence
     ckpt = str(tmp_path / "state.pt")
-    _, state = solver.solve(checkpoint_path=ckpt)
+    _, state = solver.solve(jit_loop=False, checkpoint_path=ckpt)
     from paropt_torch.utils.checkpoint import restore_state
     assert int(restore_state(ckpt, state).k) == 10
-    # solve_batched is ported; its chunked form is not
-    with pytest.raises(NotImplementedError, match="chunked"):
-        solver.solve_batched(None, chunk=3)
+    # solve_batched and its chunked form are ported
+    # (tests/test_torch_chunked_batched.py)
     # the base class's no-op write_output costs no hook
     from paropt_torch.utils.chunked import user_write_output
     assert user_write_output(TFEM(8, 4, cg_iters=10, dtype=F64,

@@ -122,19 +122,24 @@ def test_fused_ip_optimize_write_output_cadence(tmp_path):
         def write_output(self, it, x):
             calls.append(it)
 
+    # the hook fires at the boundaries of the 'auto' windows (JAX's rule:
+    # iterations 1 and 2, then windows of up to 64), at the first boundary
+    # at or past each multiple of the cadence, and at the end
     res, _ = tip.fused_ip_optimize(
         Recorded(n=512, block=8, dtype=F64, device="cpu"),
         {"write_output_frequency": 10, "abs_res_tol": 1e-5})
     assert res["converged"]
-    assert calls == [1] + list(range(10, res["niter"] + 1, 10))
+    assert calls[0] == 1 and calls[-1] == res["niter"]
+    assert all(b >= (a // 10 + 1) * 10 for a, b in zip(calls, calls[1:]))
     # checkpoints are ported: ip_checkpoint_file gets the full state at
     # the same cadence (tests/test_torch_checkpoint.py resumes from it)
     ckpt = str(tmp_path / "ip.pt")
     res, state = tip.fused_ip_optimize(
         TTopology(n=64, block=8, dtype=F64, device="cpu"),
-        {"ip_checkpoint_file": ckpt, "write_output_frequency": 10})
+        {"ip_checkpoint_file": ckpt, "write_output_frequency": 10,
+         "max_major_iters": 25})
     from paropt_torch.utils.checkpoint import restore_state
-    assert int(restore_state(ckpt, state).k) == 10 * (res["niter"] // 10)
+    assert int(restore_state(ckpt, state).k) == res["niter"] == 25
     hook = make_write_output_hook(None, 10, checkpoint_path=ckpt)
     assert hook is not None
     assert make_write_output_hook(print, 0) is None

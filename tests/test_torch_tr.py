@@ -374,17 +374,21 @@ def test_write_output_cadence_and_unported_paths(tmp_path):
                       dict(BASE, tr_max_iterations=12,
                            tr_write_output_frequency=5, tr_l1_tol=0.0,
                            tr_linfty_tol=0.0))
-    res, _ = fus.solve()
+    # the per-step loop (jit_loop=False) fires after every outer iteration
+    res, _ = fus.solve(jit_loop=False)
     assert res["niter"] == 12
     assert calls == [(1, (64,)), (5, (64,)), (10, (64,))]
+    # the chunked loop fires at its window boundaries (4, 8, 12)
+    calls.clear()
+    fus.solve(chunk=4)
+    assert calls == [(4, (64,)), (8, (64,)), (12, (64,))]
     # checkpoints are ported: the full state at the same cadence
     ckpt = str(tmp_path / "state.pt")
-    _, state = fus.solve(checkpoint_path=ckpt)
+    _, state = fus.solve(jit_loop=False, checkpoint_path=ckpt)
     from paropt_torch.utils.checkpoint import restore_state
     assert int(restore_state(ckpt, state).k) == 10
-    # solve_batched is ported; its chunked form is not
-    with pytest.raises(NotImplementedError, match="chunked"):
-        fus.solve_batched(torch.zeros((2, 64), dtype=F64), chunk=4)
+    # solve_batched and its chunked form are ported
+    # (tests/test_torch_chunked_batched.py)
     # the eigen row of the QP model (ported with the eigenvalue path): row
     # eig_index gets + 1/2 (h p)' M (h p) and its gradient + h' M (h p),
     # held against paropt_tpu's; without eig_index the fields are ignored
@@ -423,12 +427,18 @@ def test_write_output_cadence_and_unported_paths(tmp_path):
 
 def test_solve_resumes_and_result_keys():
     """`solve` returns JAX's result keys; a final state passed back as
-    state0 continues the run where it stopped."""
-    _, tf = _tr_pair("synthetic256")
-    tf._to = tf._to._replace(max_iterations=2)
-    r1, s1 = tf.solve()
-    r2, s2 = tf.solve(state0=s1)
+    state0 resumes by JAX's rule: the default stops at the absolute cap,
+    ``jit_loop=False`` continues the run for the cap more, in both
+    packages."""
+    jf, tf = _tr_pair("synthetic256")
+    counts = []
+    for f in (jf, tf):
+        f._to = f._to._replace(max_iterations=2)
+        r1, s1 = f.solve()
+        r2, _ = f.solve(state0=s1)
+        r3, _ = f.solve(state0=s1, jit_loop=False)
+        counts.append((r1["niter"], r2["niter"], r3["niter"]))
+        assert r3["subiters"] > r1["subiters"] == r2["subiters"]
     assert set(r1) == {"x", "fobj", "converged", "niter", "infeas", "l1",
                        "linfty", "tr_size", "subiters"}
-    assert (r1["niter"], r2["niter"]) == (2, 4)
-    assert r2["subiters"] > r1["subiters"]
+    assert counts[0] == counts[1] == (2, 2, 4)
