@@ -1,0 +1,5 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated() over the window, GiB."""
+
+
+def read(run, part, traffic):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes else None
