@@ -32,7 +32,6 @@ import inspect
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from .ip import HostSyncs
 from .ip_fused import _Run
@@ -44,6 +43,7 @@ from .tr import (FusedTROptions, QPParams, _add_row, _fused_ip_options,
                  _tr_rho, _viol, make_qp_model)
 from .tree import pytree, tmap
 from .utils.options import make_options
+from .utils.spans import span
 
 __all__ = ["FusedEigenTR", "EigModel", "FusedEigTRState"]
 
@@ -164,7 +164,7 @@ def _eig_tail(to: FusedTROptions, index: int, lbv, ubv,
 
     qn_new = state.qn
     if state.qn is not None:
-        with record_function("paropt.tr.qn_update"):
+        with span("paropt.tr.qn_update"):
             # the Lagrangian's secant pair with the REAL gradients
             # (`ParOptEigenSubproblem::acceptTrialStep`)
             y = (gt - At.T @ z) - (gk - Ak.T @ z)
@@ -241,7 +241,7 @@ def _fused_eig_tr_step(eval_full, eval_full_batched, qp_model, inf_model,
         d_inf = dataclasses.replace(
             d_tmpl, lb=head.lk, ub=head.uk,
             gamma_s=torch.where(idx < nineq, 0.0, ones), gamma_t=ones)
-        with record_function("paropt.tr.steer"):
+        with span("paropt.tr.steer"):
             st_inf = _inner_solve(inf_model, inf_opts, R, head.p0, d_inf,
                                   dataclasses.replace(none, lb=0, ub=0),
                                   inf_params, None, frozen)
@@ -250,7 +250,7 @@ def _fused_eig_tr_step(eval_full, eval_full_batched, qp_model, inf_model,
     # -- QP subproblem with the merged Hessian -------------------------------
     d_qp = dataclasses.replace(d_tmpl, lb=head.lk, ub=head.uk,
                                gamma_s=head.gamma_s, gamma_t=state.gamma)
-    with record_function("paropt.tr.qp"):
+    with span("paropt.tr.qp"):
         st = _inner_solve(qp_model, qp_opts, R, head.p0, d_qp,
                           dataclasses.replace(none, lb=0, ub=0, gamma_s=0,
                                               gamma_t=0),
@@ -264,7 +264,7 @@ def _fused_eig_tr_step(eval_full, eval_full_batched, qp_model, inf_model,
 
     # -- trial evaluation: one eval_full prices the trial and refreshes the
     #    eigen model; state.V warm-starts the eigensolve ---------------------
-    with record_function("paropt.tr.eval"):
+    with span("paropt.tr.eval"):
         trial = (eval_full_batched if R.batched else eval_full)(xt, state.V)
     return R.call(functools.partial(_eig_tail, to, index, lbv, ubv),
                   (0,) * (7 + len(trial)), state, best, cm, fm, p, z,
@@ -430,7 +430,8 @@ class FusedEigenTR:
                                     outer_loop, user_write_output)
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
-                                      checkpoint_path=checkpoint_path)
+                                      checkpoint_path=checkpoint_path,
+                                      syncs=self.syncs)
         state = state0 if state0 is not None else self._state0
         state = outer_loop(self._step, lambda st: self.syncs(st.converged),
                            state, self._to.max_iterations, jit_loop, chunk,

@@ -60,6 +60,7 @@ from .parallel.sharding import (is_sharded, place_like, spmd,
 from .tree import tmap
 from .utils.logging import IPLogger
 from .utils.options import OptionRegistry, make_options
+from .utils.spans import HOST_READ, span
 
 __all__ = ["InteriorPoint", "HostSyncs", "LS_SUCCESS", "LS_FAILURE",
            "LS_MIN_STEP", "LS_MAX_ITERS", "LS_NO_IMPROVEMENT",
@@ -76,7 +77,8 @@ LS_SHORT_STEP = 32
 
 class HostSyncs:
     """Reads device scalars on the host and counts the reads: each one
-    waits for the device.  ``bytes_to_host`` and ``bytes_to_device`` add up
+    waits for the device, and each runs inside a ``paropt.host_read`` span
+    (`utils.spans`).  ``bytes_to_host`` and ``bytes_to_device`` add up
     the arrays moved by `array` and `upload`.
 
     A DTensor (sharded state) is read whole: a replicated one from its
@@ -100,27 +102,31 @@ class HostSyncs:
 
     def __call__(self, flag: torch.Tensor) -> bool:
         self.count += 1
-        return bool(self._whole(flag))
+        with span(HOST_READ):
+            return bool(self._whole(flag))
 
     def value(self, t) -> float:
         """One 0-d tensor as a Python float."""
         self.count += 1
-        return float(self._whole(t))
+        with span(HOST_READ):
+            return float(self._whole(t))
 
     def values(self, *ts) -> list:
         """Several 0-d tensors as Python floats, read in one transfer (each
         widened to float64 first, which keeps its value exactly)."""
         self.count += 1
-        return torch.stack([self._whole(t).to(torch.float64)
-                            for t in ts]).tolist()
+        with span(HOST_READ):
+            return torch.stack([self._whole(t).to(torch.float64)
+                                for t in ts]).tolist()
 
     def array(self, t) -> np.ndarray:
         """A tensor as a numpy array."""
         self.count += 1
-        t = self._whole(t)
-        if t.device.type != "cpu":
-            self.bytes_to_host += t.numel() * t.element_size()
-        return t.detach().cpu().numpy()
+        with span(HOST_READ):
+            t = self._whole(t)
+            if t.device.type != "cpu":
+                self.bytes_to_host += t.numel() * t.element_size()
+            return t.detach().cpu().numpy()
 
     def upload(self, a: np.ndarray, device) -> torch.Tensor:
         """A numpy array as a tensor of its dtype on ``device`` (a copy to

@@ -22,6 +22,13 @@ the chunked solve (``jit_loop`` / ``chunk``, `utils.chunked.run_chunked`):
 nothing is compiled, so ``jit_loop`` keeps JAX's stop rule and hook
 boundaries over the same eager steps, and a chunked solve ends on the
 unchunked one bit for bit.
+
+Under torch.profiler the initial state, each solve loop, step and phase
+is a span (`utils.spans`): ``paropt.ip.init``, then ``paropt.ip.solve``
+holding the ``paropt.ip.step`` spans, each step its ``paropt.ip.head``
+(the factor), the step solve, ``paropt.ip.merit``, its line-search trials
+and ``paropt.ip.tail`` (the evaluation and the QN update); every host read
+is a ``paropt.host_read``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .dtypes import resolve_dtype
 from .ip import (HostSyncs, _apply_step, _bmult, _bound_pads, _merit_eval,
@@ -44,6 +50,7 @@ from .ops.veclib import dot, multi_norm
 from .parallel.sharding import spmd
 from .tree import bvmap, pytree, tmap
 from .utils.chunked import host_reader, run_chunked, step_until
+from .utils.spans import span, spanned
 
 __all__ = ["FusedIP", "FusedIPOptions", "FusedState", "ModelFns",
            "HostSyncs", "model_from_problem", "data_template_from_problem",
@@ -275,15 +282,18 @@ def _get_compact(opts: FusedIPOptions, model: ModelFns, state: FusedState,
     if compact is not None:
         return compact
     b0 = 0.0 if opts.sequential_linear_method else 1.0
-    return (torch.tensor(b0, dtype=state.vars.x.dtype,
-                         device=state.vars.x.device), None, None)
+    return (torch.full((), b0, dtype=state.vars.x.dtype,
+                       device=state.vars.x.device), None, None)
 
 
+@spanned("paropt.ip.init")
 def _fused_init(model: ModelFns, opts: FusedIPOptions, x0, d: ProblemData,
                 model_params, qn_state, compact) -> FusedState:
     dtype = x0.dtype
     dev = x0.device
-    scalar = lambda val: torch.tensor(val, dtype=dtype, device=dev)
+    # a fill on the device: torch.tensor(val, device=...) copies from the
+    # host, which waits for the device on a card
+    scalar = lambda val: torch.full((), val, dtype=dtype, device=dev)
     lo_pad, hi_pad = _bound_pads(d, opts.design_precision, dtype)
     x = torch.where((d.lb_mask > 0) & (x0 < d.lb + lo_pad), d.lb + lo_pad, x0)
     x = torch.where((d.ub_mask > 0) & (x > d.ub - hi_pad), d.ub - hi_pad, x)
@@ -596,6 +606,7 @@ def _nk_enabled(opts: FusedIPOptions, model: ModelFns) -> bool:
             and model.hvp is not None)
 
 
+@spanned("paropt.ip.head")
 def _step_head(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                d: ProblemData, model_params, compact) -> _Head:
     """The step up to its solve: the factor, the barrier update, the
@@ -611,9 +622,9 @@ def _step_head(model: ModelFns, opts: FusedIPOptions, state: FusedState,
     # -- factorization (μ-independent) --------------------------------------
     comp = kkt.average_complementarity(v, d)
     cq = _get_compact(opts, model, state, model_params, compact)
-    # record_function ranges label the phases in torch.profiler traces
-    # (the counterpart of the JAX step's named scopes)
-    with record_function("paropt.kkt_factor"):
+    # spans label the phases in torch.profiler traces (the counterpart of
+    # the JAX step's named scopes)
+    with span("paropt.kkt_factor"):
         f = kkt.setup_kkt_factor(v, d, qn_compact=cq, qn_sigma=opts.qn_sigma)
 
     # the KKT residual is affine in μ: compute it once at μ = 0 and shift
@@ -698,7 +709,7 @@ def _step_qn(opts: FusedIPOptions, state: FusedState, d: ProblemData,
              head: _Head):
     """The step solve with the factor: (step, 0 GMRES arms)."""
     d = _refresh_data(d, state.g, state.A, state.c, state.cw)
-    with record_function("paropt.kkt_solve"):
+    with span("paropt.kkt_solve"):
         p = kkt.solve_kkt(state.vars, d, head.f, head.r,
                           refine_steps=opts.iterative_refinement_steps,
                           qn_compact=head.cq)
@@ -709,7 +720,7 @@ def _step_nk(model: ModelFns, opts: FusedIPOptions, state: FusedState,
              d: ProblemData, model_params, head: _Head):
     """The Newton-Krylov step solve: (step, GMRES arms)."""
     d = _refresh_data(d, state.g, state.A, state.c, state.cw)
-    with record_function("paropt.kkt_solve_nk"):
+    with span("paropt.kkt_solve_nk"):
         return _fused_gmres(
             model, opts, model_params, state.vars, d, head.f, head.cq,
             head.r, torch.clamp(head.ew_rtol, 1e-12, opts.max_gmres_rtol),
@@ -723,6 +734,7 @@ def _pick_nk(use_nk, p_nk, it_nk, p_qn, it_qn):
             torch.where(use_nk, it_nk, it_qn))
 
 
+@spanned("paropt.ip.merit")
 def _step_merit(opts: FusedIPOptions, state: FusedState, d: ProblemData,
                 head: _Head, p: IPVars) -> _Merit:
     """Fraction-to-boundary scaling, the merit pieces and the ρ update."""
@@ -768,7 +780,7 @@ def _step_merit(opts: FusedIPOptions, state: FusedState, d: ProblemData,
                   px_norm=px_norm, alpha_min=alpha_min)
 
 
-@record_function("paropt.line_search_trial")
+@spanned("paropt.line_search_trial")
 def _trial_merit(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                  d: ProblemData, model_params, head: _Head, mer: _Merit,
                  alpha):
@@ -827,6 +839,7 @@ def _ls_trial(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         nev=ls.nev + (~keep).to(ls.nev.dtype))
 
 
+@spanned("paropt.ip.tail")
 def _step_tail(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                d: ProblemData, model_params, compact, head: _Head,
                mer: _Merit, ls: Optional[_LineSearch],
@@ -861,7 +874,7 @@ def _step_tail(model: ModelFns, opts: FusedIPOptions, state: FusedState,
     # -- apply the step -----------------------------------------------------
     vn = _apply_step(v, d, ps, alpha, dprec)
 
-    with record_function("paropt.eval"):
+    with span("paropt.eval"):
         fobj_n, c_n, cw_n = model.eval_obj_con(model_params, vn.x)
         g_n, A_n = model.eval_grad(model_params, vn.x)
 
@@ -873,7 +886,7 @@ def _step_tail(model: ModelFns, opts: FusedIPOptions, state: FusedState,
         if d.nwcon > 0:
             y = y - d.Aw_rmatvec(vn.zw)
             y0 = y0 - d.Aw_rmatvec(vn.zw)
-        with record_function("paropt.qn_update"):
+        with span("paropt.qn_update"):
             qn_n, _, _ = qnmod.qn_update(
                 state.qn, alpha * ps.x, y - y0,
                 compact=None if opts.use_diag_hessian else head.cq,
@@ -902,6 +915,7 @@ def _step_tail(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                 new_state, old)
 
 
+@spanned("paropt.ip.step")
 def _fused_step(model: ModelFns, opts: FusedIPOptions, state: FusedState,
                 d: ProblemData, model_params, compact,
                 host: Callable[[torch.Tensor], bool] = bool,
@@ -976,7 +990,8 @@ def _fused_solve_loop(model: ModelFns, opts: FusedIPOptions,
         return s
 
     n = opts.max_major_iters if max_iters is None else max_iters
-    return step_until(step, lambda s: R.all(s.converged), state, 0, n)
+    with span("paropt.ip.solve"):
+        return step_until(step, lambda s: R.all(s.converged), state, 0, n)
 
 
 # ---------------------------------------------------------------------------
@@ -1097,7 +1112,8 @@ def fused_ip_optimize(problem, options=None, state0=None):
     hook = make_write_output_hook(user_write_output(problem),
                                   o["write_output_frequency"],
                                   get_x=lambda st: st.vars.x,
-                                  checkpoint_path=o["ip_checkpoint_file"])
+                                  checkpoint_path=o["ip_checkpoint_file"],
+                                  syncs=fused.syncs)
     state = fused.solve(x0, data, (), qn0, None, jit_loop=True,
                         on_chunk=hook, chunk="auto", state0=state0)
     converged = bool(state.converged)

@@ -28,7 +28,6 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .ip import HostSyncs, InteriorPoint
 from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
@@ -40,6 +39,7 @@ from .tr import _viol
 from .tree import pytree, tmap
 from .utils.logging import MMALogger
 from .utils.options import OptionRegistry, make_options
+from .utils.spans import span, spanned
 
 __all__ = ["MMA", "MMAParams", "make_mma_model", "FusedMMA",
            "fused_mma_solve", "FusedMMAOptions", "FusedMMAState"]
@@ -538,7 +538,7 @@ def _mma_head(user_model: ModelFns, mo: FusedMMAOptions, lbv, ubv,
     x, x1, x2 = state.x, state.x1, state.x2
     dt = x.dtype
     dev = x.device
-    with record_function("paropt.mma.eval"):
+    with span("paropt.mma.eval"):
         fobj, cons, cw = user_model.eval_obj_con(params_user, x)
         g, A = user_model.eval_grad(params_user, x)
     cons = cons.reshape(-1)
@@ -668,6 +668,7 @@ def _mma_tail(state: FusedMMAState, head: _MMAHead, inner) -> FusedMMAState:
         stalled=head.stalled)
 
 
+@spanned("paropt.mma.outer")
 def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
                     ip_opts: FusedIPOptions, mo: FusedMMAOptions,
                     lbv, ubv, d_tmpl: ProblemData, params_user,
@@ -695,7 +696,7 @@ def _fused_mma_step(user_model: ModelFns, mma_model: ModelFns,
         pa = params._replace(**{f: 0 for f in MMAParams._fields
                                 if f not in ("Aw_cols", "Aw_vals")},
                              Aw_cols=None, Aw_vals=None)
-        with record_function("paropt.mma.inner_ip"):
+        with span("paropt.mma.inner_ip"):
             st0 = R.call(functools.partial(_fused_init, mma_model, ip_opts),
                          (0, da, pa, None, None), state.x, d, params, None,
                          None)
@@ -829,7 +830,8 @@ class FusedMMA:
                                     outer_loop, user_write_output)
         hook = make_write_output_hook(
             user_write_output(self._problem), self._write_freq,
-            get_x=lambda st: st.x, checkpoint_path=checkpoint_path)
+            get_x=lambda st: st.x, checkpoint_path=checkpoint_path,
+            syncs=self.syncs)
         state = state0 if state0 is not None else self._state0
         state = outer_loop(self._step, lambda st: self.syncs(st.converged),
                            state, self._mo.max_iterations, jit_loop, chunk,
@@ -837,11 +839,12 @@ class FusedMMA:
         # state.fobj is the value at the point the LAST step evaluated;
         # when the loop exits at the iteration cap, x has advanced once
         fobj_final, _, _ = self._ev((), state.x)
-        result = {"x": state.x, "fobj": self.syncs.value(fobj_final),
-                  "converged": bool(state.converged),
-                  "stalled": bool(state.stalled), "niter": int(state.k),
-                  "infeas": float(state.infeas), "l1": float(state.l1),
-                  "linfty": float(state.linf)}
+        fobj, conv, stalled, k, infeas, l1, linf = self.syncs.values(
+            fobj_final, state.converged, state.stalled, state.k,
+            state.infeas, state.l1, state.linf)
+        result = {"x": state.x, "fobj": fobj, "converged": bool(conv),
+                  "stalled": bool(stalled), "niter": int(k),
+                  "infeas": infeas, "l1": l1, "linfty": linf}
         return result, state
 
     def solve_batched(self, x0_batch, chunk="auto"):

@@ -38,7 +38,6 @@ from typing import List
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ip import HostSyncs
@@ -46,6 +45,7 @@ from ..ops.lobpcg import lobpcg_standard, lobpcg_standard_batched
 from ..parallel import halo
 from ..parallel.halo import strip_evaluations
 from ..problem import Problem
+from ..utils.spans import span
 from .fem_topology import FEMTopology, _view_of
 from .fem_topology3d import (_CORNERS3D, FEMTopology3D, _from_grid3, _sl,
                              _to_grid3)
@@ -110,7 +110,7 @@ class _FrequencyBase(Problem):
                 msqrt[:, None] * cg(msqrt[:, None] * self._own_rows(vblock)))
 
         X = self._X0 if V0 is None else V0
-        with record_function("paropt.eig.lobpcg"):
+        with span("paropt.eig.lobpcg"):
             mu, V, iters = lobpcg_standard(S, X, m=self.lobpcg_iters,
                                            syncs=self.syncs)
         self.lobpcg_iters_log.append(iters)
@@ -145,7 +145,7 @@ class _FrequencyBase(Problem):
             return msqrt[..., None] * cg(E, msqrt[..., None] * vblock)
 
         X = self._X0 if V0 is None else V0
-        with record_function("paropt.eig.lobpcg"):
+        with span("paropt.eig.lobpcg"):
             mu, V, iters = lobpcg_standard_batched(
                 S, X, m=self.lobpcg_iters, syncs=self.syncs)
         self.lobpcg_iters_log.append(iters)

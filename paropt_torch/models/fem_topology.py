@@ -30,13 +30,13 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
 from ..parallel import halo
 from ..parallel.halo import strip_evaluations
 from ..problem import Problem, SparseJacobian
+from ..utils.spans import span
 
 __all__ = ["FEMTopology", "DMOFEMTopology"]
 
@@ -323,7 +323,7 @@ class FEMTopology(Problem):
 
     def _solve(self, E):
         """Preconditioned CG on K(E) u = f (fixed iteration count)."""
-        with record_function("paropt.fem.solve"):
+        with span("paropt.fem.solve"):
             return self._cg(E, self.f)
 
     # -- geometric multigrid ----------------------------------------------
@@ -377,27 +377,31 @@ class FEMTopology(Problem):
         return self._mg_cycle(levels, chol, 0, r)
 
     def _mg_cycle(self, levels, chol, l, r):
-        """The V-cycle from level l down."""
+        """The V-cycle from level l down, in a ``paropt.fem.mg.l<l>`` span
+        (the coarsest level's solve in ``paropt.fem.mg.coarse``)."""
         nu, om = self.mg_smooth, self.mg_omega
         El, diag, fixed, cx, cy = levels[l]
         if l == len(levels) - 1:
-            y = torch.linalg.solve_triangular(chol, r[:, None], upper=False)
-            e = torch.linalg.solve_triangular(chol.T, y, upper=True)
-            return torch.where(fixed > 0, 0.0, e[:, 0])
+            with span("paropt.fem.mg.coarse"):
+                y = torch.linalg.solve_triangular(chol, r[:, None],
+                                                  upper=False)
+                e = torch.linalg.solve_triangular(chol.T, y, upper=True)
+                return torch.where(fixed > 0, 0.0, e[:, 0])
 
         def kmul(v):
             return self._kmul_level(El, v, cx, cy, fixed)
 
-        e = (om / diag) * r
-        for _ in range(nu - 1):
-            e = e + (om / diag) * (r - kmul(e))
-        rc = self._mg_restrict[l](r - kmul(e))
-        rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
-        e = e + torch.where(fixed > 0, 0.0, self._mg_prolong[l](
-            self._mg_cycle(levels, chol, l + 1, rc)))
-        for _ in range(nu):
-            e = e + (om / diag) * (r - kmul(e))
-        return e
+        with span(f"paropt.fem.mg.l{l}"):
+            e = (om / diag) * r
+            for _ in range(nu - 1):
+                e = e + (om / diag) * (r - kmul(e))
+            rc = self._mg_restrict[l](r - kmul(e))
+            rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
+            e = e + torch.where(fixed > 0, 0.0, self._mg_prolong[l](
+                self._mg_cycle(levels, chol, l + 1, rc)))
+            for _ in range(nu):
+                e = e + (om / diag) * (r - kmul(e))
+            return e
 
     def _cg(self, E, b):
         """Preconditioned CG on K(E) u = b for a general RHS (fixed dofs
@@ -405,7 +409,8 @@ class FEMTopology(Problem):
         V-cycle (solver='mgcg').  A fixed iteration count, and no value
         read on the host: the guards below are tensor ``where``s."""
         if self.solver == "mgcg" and len(self._mg_dims) > 1:
-            levels, chol = self._mg_setup(E)      # carries per-level diags
+            with span("paropt.fem.mg_setup"):
+                levels, chol = self._mg_setup(E)  # carries per-level diags
 
             def precond(r):
                 return self._mg_vcycle(levels, chol, r)
@@ -427,7 +432,8 @@ class FEMTopology(Problem):
         p = precond(b)
         rz = self._dot(b, p)
         for _ in range(self.cg_iters):
-            Kp = self._kmul(E, p)
+            with span("paropt.fem.kmul"):
+                Kp = self._kmul(E, p)
             pKp = self._dot(p, Kp)
             # rounded-to-nonpositive curvature: freeze instead of blowing up
             alpha = torch.where(pKp > tiny,

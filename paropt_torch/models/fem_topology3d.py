@@ -44,13 +44,13 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..dtypes import resolve_device, resolve_dtype
 from ..ops.veclib import dot
 from ..parallel import halo
 from ..parallel.halo import strip_evaluations
 from ..problem import Problem, SparseJacobian
+from ..utils.spans import span
 from .fem_topology import (_Compliance, _fields_of, _interleave,
                            _interleave_t, _view_of, mg_gather_level)
 
@@ -470,32 +470,35 @@ class FEMTopology3D(Problem):
         return self._mg_cycle(levels, chol, 0, r)
 
     def _mg_cycle(self, levels, chol, l, r):
-        """The V-cycle from level l down."""
+        """The V-cycle from level l down, in a ``paropt.fem.mg.l<l>`` span
+        (the coarsest level's solve in ``paropt.fem.mg.coarse``)."""
         nu, om = self.mg_smooth, self.mg_omega
         Eg, diag, fixed, cx, cy, cz = levels[l]
         if l == len(levels) - 1:
-            y = torch.linalg.solve_triangular(
-                chol, _from_grid3(r)[:, None], upper=False)
-            e = torch.linalg.solve_triangular(chol.T, y, upper=True)
-            e = _to_grid3(e[:, 0], cx + 1, cy + 1, cz + 1)
-            return torch.where(fixed > 0, 0.0, e)
+            with span("paropt.fem.mg.coarse"):
+                y = torch.linalg.solve_triangular(
+                    chol, _from_grid3(r)[:, None], upper=False)
+                e = torch.linalg.solve_triangular(chol.T, y, upper=True)
+                e = _to_grid3(e[:, 0], cx + 1, cy + 1, cz + 1)
+                return torch.where(fixed > 0, 0.0, e)
 
         def kmul(v):
             return self._kmul_g(Eg, v, fixed, zero_entry=True)
 
-        e = (om / diag) * r
-        for _ in range(nu - 1):
-            e = e + (om / diag) * (r - kmul(e))
-        rc = self._restrict(r - kmul(e))
-        rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
-        e = e + torch.where(fixed > 0, 0.0, self._prolong(
-            self._mg_cycle(levels, chol, l + 1, rc)))
-        for _ in range(nu):
-            e = e + (om / diag) * (r - kmul(e))
-        return e
+        with span(f"paropt.fem.mg.l{l}"):
+            e = (om / diag) * r
+            for _ in range(nu - 1):
+                e = e + (om / diag) * (r - kmul(e))
+            rc = self._restrict(r - kmul(e))
+            rc = torch.where(self._mg_fixed[l + 1] > 0, 0.0, rc)
+            e = e + torch.where(fixed > 0, 0.0, self._prolong(
+                self._mg_cycle(levels, chol, l + 1, rc)))
+            for _ in range(nu):
+                e = e + (om / diag) * (r - kmul(e))
+            return e
 
     def _solve(self, E):
-        with record_function("paropt.fem.solve"):
+        with span("paropt.fem.solve"):
             return self._cg(E, self.f)
 
     def _cg(self, E, b):
@@ -506,7 +509,8 @@ class FEMTopology3D(Problem):
         Eg = E.reshape(self.nex, self.ney, self.nez)
         fixed_g = self._fixed_g
         if self.solver == "mgcg" and len(self._mg_dims) > 1:
-            levels, chol = self._mg_setup(Eg)
+            with span("paropt.fem.mg_setup"):
+                levels, chol = self._mg_setup(Eg)
 
             def precond(r):
                 return self._mg_vcycle(levels, chol, r)
@@ -524,7 +528,8 @@ class FEMTopology3D(Problem):
         p = precond(bg)
         rz = self._dot(bg, p)
         for _ in range(self.cg_iters):
-            Kp = self._kmul_g(Eg, p, fixed_g, zero_entry=False)
+            with span("paropt.fem.kmul"):
+                Kp = self._kmul_g(Eg, p, fixed_g, zero_entry=False)
             pKp = self._dot(p, Kp)
             alpha = torch.where(pKp > tiny,
                                 rz / torch.where(pKp > tiny, pKp, 1.0), 0.0)

@@ -35,7 +35,6 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .ip import HostSyncs, InteriorPoint
 from .ip_fused import (FusedIP, FusedIPOptions, ModelFns, _fused_init,
@@ -47,6 +46,7 @@ from .problem import Problem
 from .tree import pytree, tmap
 from .utils.logging import TRLogger
 from .utils.options import OptionRegistry, make_options
+from .utils.spans import span
 
 __all__ = ["TrustRegion", "QuadraticSubproblem", "InfeasSubproblem",
            "QPParams", "make_qp_model", "FusedTR", "FusedTROptions",
@@ -1208,7 +1208,7 @@ def _tr_tail(user_model: ModelFns, to: FusedTROptions, lbv, ubv,
     #    update_flag=True: the QN updates on the trial REGARDLESS of
     #    acceptance, `ParOptTrustRegion.cpp:172-212`) ------------------------
     xt = xk + p
-    with record_function("paropt.tr.eval"):
+    with span("paropt.tr.eval"):
         ft, ct, cwt = user_model.eval_obj_con(params_user, xt)
         gt, At = user_model.eval_grad(params_user, xt)
     # fail-stop on non-finite trial data: a NaN/Inf trial is never
@@ -1218,7 +1218,7 @@ def _tr_tail(user_model: ModelFns, to: FusedTROptions, lbv, ubv,
                     & torch.all(torch.isfinite(p)))
     qn_new = state.qn
     if state.qn is not None:
-        with record_function("paropt.tr.qn_update"):
+        with span("paropt.tr.qn_update"):
             # y = grad_x L(xt, z) - grad_x L(xk, z); the CONSTANT sparse
             # Jacobian's Aw^T zw term is identical at both points and
             # cancels, so it is not formed
@@ -1322,7 +1322,7 @@ def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
             gamma_sw=torch.where(torch.arange(nwcon, device=dev)
                                  < to.nwinequality, 0.0, ones_w),
             gamma_tw=ones_w)
-        with record_function("paropt.tr.steer"):
+        with span("paropt.tr.steer"):
             st_inf = _inner_solve(
                 inf_model, inf_opts, R, head.p0, d_inf,
                 dataclasses.replace(none, lb=0, ub=0), inf_params, None,
@@ -1333,7 +1333,7 @@ def _fused_tr_step(user_model: ModelFns, qp_model: ModelFns,
     d_qp = dataclasses.replace(d_tmpl, lb=head.lk, ub=head.uk,
                                gamma_s=head.gamma_s, gamma_t=head.gamma_t)
     compact = (params.b0, params.Z, params.M)
-    with record_function("paropt.tr.qp"):
+    with span("paropt.tr.qp"):
         st = _inner_solve(qp_model, qp_opts, R, head.p0, d_qp,
                           dataclasses.replace(none, lb=0, ub=0, gamma_s=0,
                                               gamma_t=0),
@@ -1477,7 +1477,8 @@ class FusedTR:
                                     outer_loop, user_write_output)
         hook = make_write_output_hook(user_write_output(self._problem),
                                       self._write_freq,
-                                      checkpoint_path=checkpoint_path)
+                                      checkpoint_path=checkpoint_path,
+                                      syncs=self.syncs)
         state = state0 if state0 is not None else self._state0
         state = outer_loop(self._step, lambda st: self.syncs(st.converged),
                            state, self._to.max_iterations, jit_loop, chunk,

@@ -193,21 +193,23 @@ def user_write_output(problem):
 
 
 def make_write_output_hook(write_output, freq, get_x=lambda st: st.xk,
-                           checkpoint_path=None):
+                           checkpoint_path=None, syncs=None):
     """An ``on_chunk(state)`` callback that fires ``write_output(it, x)``
     and writes the full state to ``checkpoint_path`` (`save_state`) at the
     first chunk boundary at or past each multiple of ``freq`` outer
-    iterations (paropt_tpu/utils/chunked.py:90-121).  Returns None when
-    ``freq`` <= 0 or there is nothing to fire."""
+    iterations (paropt_tpu/utils/chunked.py:90-121).  Each call reads
+    ``state.k`` on the host, counted by ``syncs`` (`ip.HostSyncs`).
+    Returns None when ``freq`` <= 0 or there is nothing to fire."""
     if freq is None or int(freq) <= 0:
         return None
     if write_output is None and checkpoint_path is None:
         return None          # nothing to fire: no read of state.k
     freq = int(freq)
     next_k = [0]
+    read = float if syncs is None else syncs.value
 
     def hook(state):
-        k = int(state.k)
+        k = int(read(state.k))
         if k < next_k[0]:
             return
         next_k[0] = (k // freq + 1) * freq
