@@ -13,10 +13,12 @@ iteration count, preconditioned by Jacobi or by a geometric-multigrid
 V-cycle; the element product is a [ne, 8] @ [8, 8] matmul between corner
 slices of the node grid and pads back onto it; the compliance gradient is
 the self-adjoint one, dc/dx_e = −(dE/dx_e)·(u_eᵀ k0 u_e), taken from the
-forward solve's u with no second solve and no autograd through CG
-(`_Compliance`).  CG and the V-cycle read nothing on the host: the
-breakdown guards are tensor ``where``s and the coarsest level is solved
-with the factor of ``torch.linalg.cholesky_ex``.
+u of a forward solve with no autograd through CG (`_Compliance`): after
+``eval_obj_con(x)``, the gradient at the same x reuses the u that
+evaluation solved and runs no solve of its own (`_StateMemo`).  CG and
+the V-cycle read nothing on the host: the breakdown guards are tensor
+``where``s and the coarsest level is solved with the factor of
+``torch.linalg.cholesky_ex``.
 
 On a design vector sharded over a device mesh each rank evaluates on its
 x-strip of the mesh (`_FEMStrip`, `parallel.halo`), where GSPMD turns the
@@ -155,6 +157,11 @@ class _Compliance(torch.autograd.Function):
 
     @staticmethod
     def forward(x, model):
+        kept, model._kept = model._kept, None
+        if kept is not None:
+            return kept
+        # no memo outlives the start of a solve
+        model._memo = None
         return model._state(x)
 
     @staticmethod
@@ -171,8 +178,70 @@ class _Compliance(torch.autograd.Function):
         return ctx.model._compliance_vjp(x, u, ct), None
 
 
+def _untransformed(x) -> bool:
+    """True where x is a plain tensor outside every ``torch.func``
+    transform, whose version counter the memo can read."""
+    return (torch._C._functorch.peek_interpreter_stack() is None
+            and not x.is_inference())
+
+
+class _StateMemo:
+    """The one-shot state memo of a compliance model: the state that
+    ``eval_obj_con(x)`` solved serves the gradient at the same point.
+
+    ``eval_obj_con(x)`` keeps ``(x, x._version, c, u)``.  When
+    ``eval_obj_con_gradient`` is next handed the same tensor object at the
+    same version, with no ``torch.func`` transform active, it hands the
+    kept ``(c, u)`` to `_Compliance.forward` in place of a second solve,
+    once, in a ``paropt.fem.state_reuse`` span, and then runs the
+    gradient it always runs: the same formulas on the same tensors, so the
+    gradient is bit for bit the one a second solve gives.  Every gradient
+    call releases the memo, and every compliance solve drops it before it
+    starts, so no memo is alive while a solve runs.  Any other call
+    (another tensor, an in-place change, a strip view's local tensor, a
+    ``vmap`` batch) solves as before.  The model gives ``c_scale``,
+    ``constraints`` and `_Compliance`'s ``_state`` / ``_compliance_vjp``,
+    and ``_design_field(x)`` where its compliance is a function of a
+    field of x (the filtered densities)."""
+
+    _memo = None    # (x, x._version, c, u) of the last eval_obj_con
+    _kept = None    # the (c, u) the next _Compliance.forward returns
+
+    def _design_field(self, x):
+        return x
+
+    def _compliance(self, xf):
+        return _Compliance.apply(xf, self)[0]
+
+    def _objective_state(self, x):
+        """(objective, c, u) at x."""
+        c, u = _Compliance.apply(self._design_field(x), self)
+        return self.c_scale * c, c, u
+
+    def objective(self, x):
+        return self._objective_state(x)[0]
+
+    def eval_obj_con(self, x):
+        f, c, u = self._objective_state(x)
+        if _untransformed(x):
+            self._memo = (x, x._version, c.detach(), u)
+        return f, self.constraints(x)
+
+    def eval_obj_con_gradient(self, x):
+        memo, self._memo = self._memo, None
+        if (memo is None or memo[0] is not x or not _untransformed(x)
+                or memo[1] != x._version):
+            return super().eval_obj_con_gradient(x)
+        with span("paropt.fem.state_reuse"):
+            self._kept = memo[2:]
+            try:
+                return super().eval_obj_con_gradient(x)
+            finally:
+                self._kept = None
+
+
 @strip_evaluations
-class FEMTopology(Problem):
+class FEMTopology(_StateMemo, Problem):
     """The 2-D SIMP compliance problem.  ``device`` holds every array; the
     constructor turns TF32 off for float32 matrix products, without which
     the SIMP CG diverges (the JAX package needs Precision.HIGHEST)."""
@@ -466,12 +535,9 @@ class FEMTopology(Problem):
         dE = self.penal * xf ** (self.penal - 1.0) * (self.e0 - self.emin)
         return -ct * dE * self._element_energies(u)
 
-    def _compliance(self, xf):
-        return _Compliance.apply(xf, self)[0]
-
     # -- Problem surface -------------------------------------------------
-    def objective(self, x):
-        return self.c_scale * self._compliance(self._filter(x))
+    def _design_field(self, x):
+        return self._filter(x)
 
     def constraints(self, x):
         return (self.volume_fraction
@@ -497,7 +563,7 @@ class FEMTopology(Problem):
 
 
 @strip_evaluations
-class DMOFEMTopology(Problem):
+class DMOFEMTopology(_StateMemo, Problem):
     """Multi-material (Discrete Material Optimization) 2-D compliance
     problem: per-element material weights with one "weights sum <= 1"
     constraint per element, so the sparse Jacobian is the partition
@@ -554,13 +620,7 @@ class DMOFEMTopology(Problem):
         dE = dwdx * (self.e_mats - self.emin)[None, :]         # [ne, nmat]
         return (-ct * energies[:, None] * dE).reshape(-1)
 
-    def _compliance(self, x):
-        return _Compliance.apply(x, self)[0]
-
     # -- Problem surface -------------------------------------------------
-    def objective(self, x):
-        return self.c_scale * self._compliance(x)
-
     def constraints(self, x):
         mass = self.fem._mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)
@@ -592,8 +652,10 @@ class DMOFEMTopology(Problem):
 
 
 def _fields_of(model) -> dict:
-    """A model's attributes but its cached strip views."""
-    return {k: v for k, v in vars(model).items() if k != "_strip_views"}
+    """A model's attributes but its cached strip views and its state memo
+    (`_StateMemo`)."""
+    return {k: v for k, v in vars(model).items()
+            if k not in ("_strip_views", "_memo", "_kept")}
 
 
 def _view_of(model):

@@ -15,8 +15,10 @@ As in the JAX package: the state solve runs on SoA component grids
 Jacobi or by a geometric-multigrid V-cycle whose coarsest level is a dense
 Cholesky solve; the density filter is the 6-neighbour average with periodic
 wrap (``torch.roll``, as ``jnp.roll``); the compliance gradient is the
-self-adjoint one, taken from the forward solve's u (`_Compliance`).  Nothing
-in CG or the V-cycle reads a value on the host.
+self-adjoint one (`_Compliance`), taken from the u that ``eval_obj_con``
+solved at the same point, with no solve of its own (`_StateMemo`), or
+from its own forward solve where it is called alone.  Nothing in CG or the
+V-cycle reads a value on the host.
 
 The element product K(E)·u has two layouts, chosen per multigrid level:
 
@@ -52,7 +54,8 @@ from ..parallel.halo import strip_evaluations
 from ..problem import Problem, SparseJacobian
 from ..utils.spans import span
 from .fem_topology import (_Compliance, _fields_of, _interleave,
-                           _interleave_t, _view_of, mg_gather_level)
+                           _interleave_t, _StateMemo, _view_of,
+                           mg_gather_level)
 
 __all__ = ["FEMTopology3D", "DMOFEMTopology3D", "hex_element_stiffness"]
 
@@ -249,7 +252,7 @@ def _restrict3d():
 
 
 @strip_evaluations
-class FEMTopology3D(Problem):
+class FEMTopology3D(_StateMemo, Problem):
     """Cantilever voxel design domain: fixed at the x = 0 face, unit
     downward load along the bottom edge of the free face.  ``device`` holds
     every array; the constructor turns TF32 off for float32 matrix
@@ -559,12 +562,9 @@ class FEMTopology3D(Problem):
         dE = self.penal * xf ** (self.penal - 1.0) * (self.e0 - self.emin)
         return -ct * dE * self._element_energies(u)
 
-    def _compliance(self, xf):
-        return _Compliance.apply(xf, self)[0]
-
     # -- Problem surface --------------------------------------------------
-    def objective(self, x):
-        return self.c_scale * self._compliance(self._filter(x))
+    def _design_field(self, x):
+        return self._filter(x)
 
     def constraints(self, x):
         return (self.volume_fraction - self._mean(x)).reshape(1)
@@ -587,7 +587,7 @@ class FEMTopology3D(Problem):
 
 
 @strip_evaluations
-class DMOFEMTopology3D(Problem):
+class DMOFEMTopology3D(_StateMemo, Problem):
     """Multi-material (DMO) 3-D voxel compliance design: per-voxel material
     weights x[e, m] with one "weights sum <= 1" constraint per voxel (the
     'blocked' sparse pattern).
@@ -642,13 +642,7 @@ class DMOFEMTopology3D(Problem):
         dE = dwdx * (self.e_mats - self.emin)[None, :]         # [ne, nmat]
         return (-ct * energies[:, None] * dE).reshape(-1)
 
-    def _compliance(self, x):
-        return _Compliance.apply(x, self)[0]
-
     # -- Problem surface --------------------------------------------------
-    def objective(self, x):
-        return self.c_scale * self._compliance(x)
-
     def constraints(self, x):
         mass = self.fem._mean(x.reshape(self.ne, self.nmat) @ self.rho_mats)
         return (self.mass_fraction - mass).reshape(1)

@@ -8,7 +8,8 @@ that cancelled.  The element operator and the V-cycle are a few sums of a
 few terms, so they agree to 1e-13; the prolongation is exact and its
 explicit transpose agrees with JAX's `linear_transpose` to 1e-15; the
 Jacobi-CG and multigrid-CG solutions to 1e-12; objective and adjoint
-gradient to 1e-11 (measured: 1e-14 to 1e-13).
+gradient to 1e-11 (measured: 1e-14 to 1e-13).  The state memo
+(`_torch_state_memo`): FEM (mgcg, Jacobi) and DMO in float32 and float64.
 """
 
 import jax
@@ -23,6 +24,7 @@ from paropt_torch.models import fem_topology as tfem
 from paropt_torch.models.fem_topology import DMOFEMTopology as TDMO
 from paropt_torch.models.fem_topology import FEMTopology as TFEM
 
+from . import _torch_state_memo as state_memo
 from ._torch_parity import assert_close, assert_rel, np_of
 
 
@@ -255,3 +257,57 @@ def test_interleave_transpose_is_exact():
         r = torch.as_tensor(rng.standard_normal(out.shape))
         assert float((out * r).sum()) == pytest.approx(
             float((c * tfem._interleave_t(r, axis)).sum()), rel=1e-14)
+
+
+# -- the state memo: the gradient reuses its evaluation's state ------------
+
+MEMO_MODELS = {
+    "fem-mgcg": lambda dt: TFEM(12, 6, cg_iters=10, solver="mgcg", dtype=dt,
+                                device="cpu"),
+    "fem-jacobi": lambda dt: TFEM(8, 4, cg_iters=10, dtype=dt,
+                                  device="cpu"),
+    "dmo": lambda dt: TDMO(6, 3, cg_iters=10, dtype=dt, device="cpu"),
+}
+MEMO_CASES = [(name, dt) for name in MEMO_MODELS
+              for dt in (torch.float32, F64)]
+MEMO_IDS = [f"{name}-{str(dt)[6:]}" for name, dt in MEMO_CASES]
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_hit_equals_miss(name, dt):
+    state_memo.check_hit_equals_miss(MEMO_MODELS[name](dt))
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_misses_after_a_change(name, dt):
+    state_memo.check_misses(MEMO_MODELS[name](dt))
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_released(name, dt):
+    state_memo.check_released(MEMO_MODELS[name](dt))
+
+
+@pytest.mark.parametrize("where", ["vmap", "inference_mode"])
+def test_state_memo_not_kept(where):
+    """An evaluation of a ``torch.func.vmap`` batch keeps no memo (its
+    tensors belong to the transform), nor one of an inference tensor
+    (which has no version counter); either gradient solves."""
+    tp = TFEM(8, 4, cg_iters=10, dtype=F64, device="cpu")
+    x = state_memo.design(tp, 5)
+    f_want = tp.objective(x)
+    g_want, _ = tp.eval_obj_con_gradient(x)
+    tp.eval_obj_con(x)
+    if where == "vmap":
+        f = torch.func.vmap(lambda xx: tp.eval_obj_con(xx)[0])(
+            torch.stack([x, 0.9 * x]))[0]
+        assert tp._memo is None
+        g, _ = torch.func.vmap(tp.eval_obj_con_gradient)(x[None])
+        g = g[0]
+    else:
+        with torch.inference_mode():
+            xi = x.clone()
+            f, _ = tp.eval_obj_con(xi)
+            assert tp._memo is None
+            g, _ = tp.eval_obj_con_gradient(xi)
+    assert torch.equal(f, f_want) and torch.equal(g, g_want)

@@ -11,7 +11,9 @@ grid stencil (called eagerly, no jit) to 1e-13; the restriction is the
 adjoint of the prolongation to 1e-14; the multigrid-CG state solve,
 objective, adjoint gradient and constraints agree to 1e-10 (measured:
 1e-14); FusedMMA's first five outer iterations take JAX's inner
-iteration counts with fobj within 1e-9.
+iteration counts with fobj within 1e-9.  The state memo
+(`_torch_state_memo`): mgcg and Jacobi in both layouts and DMO, in float32
+and float64.
 """
 
 import jax
@@ -25,6 +27,7 @@ from paropt_tpu.models import fem_topology3d as jfem
 from paropt_torch import mma as tmma
 from paropt_torch.models import fem_topology3d as tfem
 
+from . import _torch_state_memo as state_memo
 from ._torch_parity import assert_close, assert_rel, np_of
 
 torch.set_num_threads(1)
@@ -235,3 +238,39 @@ def test_dmo_objective_and_gradient(dmo_pair):
     assert_rel(gt, gj, rtol=1e-10)
     assert_close(tp.sparse_constraints(torch.as_tensor(x)),
                  jp.sparse_constraints(jnp.asarray(x)), rtol=1e-14)
+
+
+# -- the state memo: the gradient reuses its evaluation's state ------------
+
+MEMO_MODELS = {
+    "mgcg-grid": lambda dt: tfem.FEMTopology3D(
+        NEX, NEY, NEZ, cg_iters=10, solver="mgcg", layout="grid", dtype=dt,
+        device="cpu"),
+    "mgcg-aos": lambda dt: tfem.FEMTopology3D(
+        NEX, NEY, NEZ, cg_iters=10, solver="mgcg", layout="aos", dtype=dt,
+        device="cpu"),
+    "jacobi-grid": lambda dt: tfem.FEMTopology3D(
+        NEX, NEY, NEZ, cg_iters=10, layout="grid", dtype=dt, device="cpu"),
+    "jacobi-aos": lambda dt: tfem.FEMTopology3D(
+        NEX, NEY, NEZ, cg_iters=10, layout="aos", dtype=dt, device="cpu"),
+    "dmo": lambda dt: tfem.DMOFEMTopology3D(4, 2, 2, cg_iters=10, dtype=dt,
+                                            device="cpu"),
+}
+MEMO_CASES = [(name, dt) for name in MEMO_MODELS
+              for dt in (torch.float32, F64)]
+MEMO_IDS = [f"{name}-{str(dt)[6:]}" for name, dt in MEMO_CASES]
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_hit_equals_miss(name, dt):
+    state_memo.check_hit_equals_miss(MEMO_MODELS[name](dt))
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_misses_after_a_change(name, dt):
+    state_memo.check_misses(MEMO_MODELS[name](dt))
+
+
+@pytest.mark.parametrize("name,dt", MEMO_CASES, ids=MEMO_IDS)
+def test_state_memo_released(name, dt):
+    state_memo.check_released(MEMO_MODELS[name](dt))

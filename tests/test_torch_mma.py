@@ -15,6 +15,10 @@ same problems and the same numpy inputs, in float64.
   form (8x4) and DMO (12x6): the same outer and inner iteration counts,
   fobj within 1e-8 relative on every outer iteration and final x within
   1e-7 (measured: fobj to 3e-12, x to 6e-11 on DMO, 1e-13 elsewhere).
+- One state solve per outer iteration on the 2-D and 3-D multigrid
+  cantilevers (the gradient reuses the evaluation's state), with iterates
+  bit for bit those of runs whose gradients solve again; the same on a
+  one-rank strip view, whose gradients solve again.
 """
 
 import jax.numpy as jnp
@@ -32,9 +36,11 @@ from paropt_torch import convert
 from paropt_torch import ip_fused as tip
 from paropt_torch import mma as tmma
 from paropt_torch.models.fem_topology import DMOFEMTopology as TDMO
+from paropt_torch.models.fem_topology3d import FEMTopology3D
 from paropt_torch.models.fem_topology import FEMTopology as TFEM
 from paropt_torch.models.topology import SyntheticTopology as TTopology
 
+from . import _torch_state_memo as state_memo
 from ._torch_parity import assert_close, assert_rel, fields_of
 
 torch.set_num_threads(1)
@@ -346,3 +352,87 @@ def test_fused_mma_solve_reuses_the_build():
     r2, _ = tmma.fused_mma_solve(prob, dict(opts))
     assert len(tmma._FUSED_MMA_CACHE) == n_solvers
     assert torch.equal(r1["x"], r2["x"])
+
+
+# ---------------------------------------------------------------------------
+# one state solve per outer iteration (the models' state memo)
+# ---------------------------------------------------------------------------
+
+MEMO_MMA = {
+    "fem12x6-mgcg": lambda dt: TFEM(12, 6, cg_iters=25, solver="mgcg",
+                                    dtype=dt, device="cpu"),
+    "fem3d8x4x4-mgcg": lambda dt: FEMTopology3D(8, 4, 4, cg_iters=10,
+                                                solver="mgcg", dtype=dt,
+                                                device="cpu"),
+}
+MEMO_MMA_CASES = [(name, dt) for name in sorted(MEMO_MMA)
+                  for dt in (torch.float32, F64)]
+
+
+def _memo_steps(prob, steps=5):
+    """The iterates of ``steps`` FusedMMA outer iterations, and the state
+    solves they ran."""
+    solves = state_memo.Solves(prob)
+    solver = tmma.FusedMMA(prob, dict(OPTS, mma_max_iterations=steps,
+                                      dtype=str(prob._dtype)[6:]))
+    st, xs = solver._state0, []
+    for _ in range(steps):
+        st = solver._step(st)
+        xs.append(st.x)
+    assert int(st.k) == steps and not bool(st.converged)
+    return xs, solves.n
+
+
+@pytest.mark.parametrize("name,dt", MEMO_MMA_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in MEMO_MMA_CASES])
+def test_one_state_solve_per_outer_iteration(name, dt):
+    """FusedMMA runs one state solve per outer iteration: the gradient
+    reuses the evaluation's state.  Its iterates equal bit for bit those of
+    the same run with every gradient handed a clone of x, which solves
+    again."""
+    xs, n = _memo_steps(MEMO_MMA[name](dt))
+    assert n == 5
+    miss = MEMO_MMA[name](dt)
+    gradient = miss.eval_obj_con_gradient
+    miss.eval_obj_con_gradient = lambda x: gradient(x.clone())
+    xs_miss, n_miss = _memo_steps(miss)
+    assert n_miss == 10
+    for k, (x, x_miss) in enumerate(zip(xs, xs_miss)):
+        assert torch.equal(x, x_miss), k
+
+
+def test_state_memo_on_a_one_rank_strip_view(tmp_path):
+    """FusedMMA from a sharded state at one rank: the strip view starts
+    with no memo, gets a local tensor at each call (so its gradients solve
+    again), and its iterates equal the plain model's bit for bit."""
+    import torch.distributed as dist
+    from paropt_torch.models.fem_topology3d import _FEM3DStrip
+    from paropt_torch.parallel import sharding as sh
+    make = MEMO_MMA["fem3d8x4x4-mgcg"]
+    opts = dict(OPTS, mma_max_iterations=5, dtype="float64")
+    res, st = tmma.FusedMMA(make(F64), dict(opts)).solve()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = sh.design_mesh("cpu")
+        prob = make(F64)
+        prob.eval_obj_con(prob.get_vars_and_bounds()[0])
+        assert prob._memo is not None
+        assert prob._strip_view(mesh)._memo is None
+        solver = tmma.FusedMMA(prob, dict(opts))
+        solves = []
+        solve = _FEM3DStrip._solve
+        _FEM3DStrip._solve = lambda self, E: solves.append(1) or solve(
+            self, E)
+        try:
+            res_s, st_s = solver.solve(
+                state0=sh.shard_tree(solver._state0, mesh, prob.nvars))
+        finally:
+            _FEM3DStrip._solve = solve
+    finally:
+        dist.destroy_process_group()
+    # two per outer iteration and the final evaluation
+    assert len(solves) == 11
+    assert int(st_s.k) == int(st.k) == 5
+    assert torch.equal(st_s.x.full_tensor(), st.x)
+    assert res_s["fobj"] == res["fobj"]

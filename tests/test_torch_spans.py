@@ -8,8 +8,9 @@
   ``paropt.ip.step`` per step inside it (k + 1 of them for a solve that
   converged: the last step freezes), a ``paropt.host_read`` per counted
   host read, the step's phases inside their step; for FusedMMA a
-  ``paropt.mma.outer`` per outer iteration with its two state solves, and
-  the multigrid spans nested level by level.
+  ``paropt.mma.outer`` per outer iteration with its one state solve and,
+  in its evaluation, the gradient's ``paropt.fem.state_reuse`` (no solve
+  inside), and the multigrid spans nested level by level.
 - On a card (``-m cuda``): a few FusedIP steps and one FusedMMA outer
   iteration make no device-to-host sync outside `ip.HostSyncs`, so every
   idle gap a read opens is named by its ``paropt.host_read`` span.
@@ -246,14 +247,18 @@ def test_mma_solve_spans(tmp_path):
     assert out["seen"] == [1, 2]
     assert len(_named(found, spans.HOST_READ)) == out["reads"]
     for outer in outers:
-        assert len(_within(found, "paropt.fem.solve", outer)) == 2
+        assert len(_within(found, "paropt.fem.solve", outer)) == 1
+        (evaluation,) = _within(found, "paropt.mma.eval", outer)
+        (reuse,) = _within(found, "paropt.fem.state_reuse", evaluation)
+        assert not _within(found, "paropt.fem.solve", reuse)
         (inner,) = _within(found, "paropt.mma.inner_ip", outer)
         assert len(_within(found, "paropt.ip.init", inner)) == 1
         (whole,) = _within(found, "paropt.ip.solve", inner)
         assert len(_within(found, "paropt.ip.step", whole)) >= 2
     # outside the outer iterations: the model's scale at construction and
     # the evaluation after the loop
-    assert len(_named(found, "paropt.fem.solve")) == 2 * 2 + 2
+    assert len(_named(found, "paropt.fem.solve")) == 2 * 1 + 2
+    assert len(_named(found, "paropt.fem.state_reuse")) == 2
 
 
 @pytest.mark.parametrize("dims", [(16, 8, 8), (32, 16)],
