@@ -47,6 +47,8 @@ from typing import Optional
 
 import torch
 
+from . import collectives
+
 __all__ = ["DESIGN_AXIS", "HOST_AXIS", "init_distributed", "design_mesh",
            "hybrid_design_mesh", "design_sharding", "row_sharding",
            "replicated_sharding", "shard_design", "replicate", "shard_tree",
@@ -326,7 +328,8 @@ def spmd(fn=None, *, probe=None):
     tensor that meets a DTensor counts as replicated, as a JAX array
     without a sharding does under ``jit``.  When its arguments (or
     ``probe(*args)``, e.g. a solver's own state) hold a DTensor, every
-    reduction's result is also all-reduced at once (`_SettleReductions`).
+    reduction's result is also all-reduced at once (`_SettleReductions`),
+    and the collectives the call issues are counted (`collectives`).
     Nested entry points enter each context once; a call on plain tensors
     pays one walk of its arguments."""
     if fn is None:
@@ -346,6 +349,7 @@ def spmd(fn=None, *, probe=None):
             if not getattr(_SPMD, "settle", False) and tree_is_sharded(
                     args, kwargs, probe(*args) if probe else None):
                 stack.enter_context(_SettleReductions.make())
+                stack.enter_context(collectives.counting())
                 # an ncon = 1 array meeting a DTensor is replicated on
                 # purpose; DTensor warns about each such [1] tensor
                 stack.enter_context(warnings.catch_warnings())

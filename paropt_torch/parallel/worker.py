@@ -14,6 +14,12 @@ each case of ``--cases``:
   path), after a 2-step warm-up solve: ``--steps`` host-paced steps, then
   ``solve`` from that state to convergence; the trajectory (k, fobj, res,
   mu per step) and the final x;
+- ``count``: the collective counter (`collectives`) over ``--steps``
+  steps of that solve: the collectives and bytes it counts, in all and
+  by kind,
+  `CollectiveBytes`'s reading of them, the ``paropt.collective`` spans
+  entered, and whether the steps come out bit for bit the same with the
+  counter's wrappers left out;
 - ``overhead``: the same solve, warm, on plain tensors and on sharded
   state in this process, and the share of the latter spent in the spmd
   mode's own work (`ModeSeconds`);
@@ -41,6 +47,7 @@ vectors as ``{case}_{name}.npy``.  The worker imports no jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -51,6 +58,8 @@ import time
 
 import numpy as np
 import torch
+
+from . import collectives
 
 __all__ = ["spawn", "main", "QP_N", "MMA_N", "HOST_IP_N", "FEM2D", "FEM3D",
            "EIGTR", "EIG_OPTS"]
@@ -201,6 +210,47 @@ def case_ip(ctx) -> dict:
                 "A": str(st.A.placements)}}
 
 
+def case_count(ctx) -> dict:
+    """The collective counter over ``--steps`` steps of the main path's
+    sharded solve (see the module docstring)."""
+    from .sharding import shard_tree
+    a = ctx.args
+    fused, data, x0, qn0 = _fused_ip(ctx, a.n, a.msub, a.tol)
+    ds = shard_tree(data, ctx.mesh, a.n)
+    xs, qs = shard_tree((x0, qn0), ctx.mesh, a.n)
+
+    def solve(*args):
+        return fused.solve(*args, max_iters=a.steps)
+
+    spans = []
+    span = collectives.span
+    collectives.span = lambda name: spans.append(name) or span(name)
+    collectives.reset()
+    try:
+        with CollectiveBytes() as coll:
+            st = solve(xs, ds, (), qs, None)
+    finally:
+        collectives.span = span
+    counted = dict(collectives.COUNTS)
+    kinds = {k: list(v) for k, v in collectives.BY_KIND.items()}
+    collectives.reset()
+    saved = collectives.counting
+    collectives.counting = contextlib.nullcontext
+    try:
+        bare = solve(xs, ds, (), qs, None)
+        uncounted = dict(collectives.COUNTS)
+    finally:
+        collectives.counting = saved
+    same = all(ctx.whole(u).tobytes() == ctx.whole(v).tobytes()
+               for u, v in zip(_leaves(st), _leaves(bare)))
+    return {"calls": counted["calls"], "bytes": counted["bytes"],
+            "kinds": kinds,
+            "reading": {"calls": coll.calls, "bytes": coll.bytes},
+            "spans": spans.count(collectives.SPAN),
+            "uncounted": uncounted, "bit_equal": same,
+            "installed_after": collectives.installed(), "k": int(st.k)}
+
+
 def case_overhead(ctx) -> dict:
     """The main path's solve, each run warm (a 2-step solve first) and
     timed alone: on plain tensors, then on sharded state with the seconds
@@ -271,21 +321,17 @@ class ModeSeconds:
 
 
 class CollectiveBytes:
-    """Counts the collectives DTensor issues on this rank and the bytes of
-    their local inputs (what the rank hands to each collective), by
-    wrapping the functional collectives DTensor calls; and the x-strips'
-    exchanges (`halo.record`): ``halo`` lists each one's (helper,
-    elements sent to each peer, peers)."""
-
-    NAMES = ("all_reduce", "all_gather_tensor", "all_gather_single",
-             "reduce_scatter_tensor", "reduce_scatter_single",
-             "all_to_all_single")
+    """The collectives this rank issued while entered and the bytes of
+    their local inputs (what the rank hands to each), read on exit from
+    the program's one counter, `collectives.COUNTS`, whose wrappers stay
+    installed while entered; and the x-strips' exchanges (`halo.record`):
+    ``halo`` lists each one's (helper, elements sent to each peer,
+    peers)."""
 
     def __init__(self):
         self.calls = 0
         self.bytes = 0
         self.halo = []
-        self._saved = {}
 
     def add(self, kind, elements, peers):
         self.halo.append((kind, elements, peers))
@@ -293,27 +339,16 @@ class CollectiveBytes:
     def __enter__(self):
         from . import halo
         halo.RECORDERS.append(self)
-        import torch.distributed._functional_collectives as funcol
-        for name in self.NAMES:
-            fn = getattr(funcol, name, None)
-            if fn is None:
-                continue
-            self._saved[name] = fn
-
-            def counted(t, *args, _fn=fn, **kwargs):
-                self.calls += 1
-                self.bytes += t.numel() * t.element_size()
-                return _fn(t, *args, **kwargs)
-
-            setattr(funcol, name, counted)
+        self._counting = collectives.counting()
+        self._start = dict(self._counting.__enter__())
         return self
 
     def __exit__(self, *exc):
         from . import halo
+        self.calls = collectives.COUNTS["calls"] - self._start["calls"]
+        self.bytes = collectives.COUNTS["bytes"] - self._start["bytes"]
+        self._counting.__exit__(*exc)
         halo.RECORDERS.remove(self)
-        import torch.distributed._functional_collectives as funcol
-        for name, fn in self._saved.items():
-            setattr(funcol, name, fn)
 
 
 def _placement(t) -> str:
@@ -807,6 +842,7 @@ def case_eigtr(ctx) -> dict:
 
 
 CASES = {"coll": case_coll, "ops": case_ops, "ip": case_ip,
+         "count": case_count,
          "overhead": case_overhead, "ckpt": case_ckpt, "qp": case_qp,
          "nk": case_nk, "mma": case_mma, "hostip": case_hostip,
          "fem2d": case_fem2d, "fem3d": case_fem3d, "eigtr": case_eigtr}
